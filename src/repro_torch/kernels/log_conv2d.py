@@ -1,0 +1,354 @@
+"""NHWC conv2d against packed 6-bit(+sign) log-quantized weights.
+
+Counterpart of `repro.kernels.log_conv2d`.  Three implementations share one
+contract (`kernels/ops.conv2d` dispatches between them):
+
+  * ``log_conv2d_fused`` — the wrapper of the hand-written CUDA kernel
+    `csrc/log_conv2d.cu`, which replaces the TPU kernel
+    `log_conv2d_fused_pallas`.  It reads the int8 codes as stored (natural
+    HWIO or lane-packed), decodes them with eq. (8) next to the FMAs and
+    applies the per-channel scale in the epilogue.  On a CPU tensor it runs
+    the plain `log_conv2d_blockwise` instead; on a CUDA tensor it launches
+    the kernel or raises.
+  * ``log_conv2d_blockwise`` — decode, then `F.conv2d(groups=)`, converting
+    NHWC ↔ NCHW only at the boundary.
+  * ``log_conv2d_ref`` — explicit im2col patches × `ref.ref_log_matmul`.
+    Independent of `F.conv2d`, so it cross-checks the patch extraction.
+
+All take ``packed [K, K, Cin//groups, Cout]`` int8 codes with a
+per-output-channel (or scalar) fp scale, `stride`, `padding`
+("SAME"/"VALID"/int/explicit pairs, XLA's SAME convention) and `groups`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.logquant import LogQuantConfig
+from . import _build
+from .ref import ref_log_matmul
+
+DEFAULT_CFG = LogQuantConfig()
+
+
+# ---------------------------------------------------------------------------
+# shared plumbing
+# ---------------------------------------------------------------------------
+
+
+def _pad_pair(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA-style SAME padding for one spatial dim (low side gets total//2)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def normalize_padding(padding, K: int, stride: int, H: int, W: int):
+    """→ ((lo_h, hi_h), (lo_w, hi_w)), accepting SAME/VALID/int/pairs."""
+    if isinstance(padding, str):
+        p = padding.upper()
+        if p == "VALID":
+            return (0, 0), (0, 0)
+        if p == "SAME":
+            return _pad_pair(H, K, stride), _pad_pair(W, K, stride)
+        raise ValueError(f"unknown padding {padding!r}")
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (ph, pw) = padding
+    if isinstance(ph, int):
+        return (ph, ph), (pw, pw)
+    return tuple(ph), tuple(pw)
+
+
+def _out_size(size: int, k: int, stride: int, pads: tuple[int, int]) -> int:
+    return (size + pads[0] + pads[1] - k) // stride + 1
+
+
+def _pad_nhwc(x, pads):
+    (ph0, ph1), (pw0, pw1) = pads
+    return F.pad(x, (0, 0, pw0, pw1, ph0, ph1))
+
+
+def _im2col(x, K: int, stride: int, pads):
+    """x: [B, H, W, C] → patches [B, Ho, Wo, K*K*C], tap-major (kh, kw, c),
+    the order of ``w.reshape(K*K*Cin, Cout)`` for an HWIO kernel."""
+    B, H, W, C = x.shape
+    xp = _pad_nhwc(x, pads)
+    Ho = _out_size(H, K, stride, pads[0])
+    Wo = _out_size(W, K, stride, pads[1])
+    taps = [xp[:, kh:kh + (Ho - 1) * stride + 1:stride,
+               kw:kw + (Wo - 1) * stride + 1:stride, :]
+            for kh in range(K) for kw in range(K)]
+    patches = torch.stack(taps, dim=3)            # [B, Ho, Wo, K*K, C]
+    return patches.reshape(B, Ho, Wo, K * K * C), Ho, Wo
+
+
+def _block_diag_codes(packed, groups: int):
+    """packed [K, K, cin_g, Cout] → [K*K*(groups·cin_g), Cout] block-diagonal
+    int8 codes: row (tap, g, i) holds the codes of group g's output channels
+    and the zero code (int8 0, which decodes to 0.0) everywhere else."""
+    K1, K2, cin_g, Cout = packed.shape
+    cout_g = Cout // groups
+    taps = K1 * K2
+    w = packed.reshape(taps, cin_g, Cout)
+    if groups == 1:
+        return w.reshape(taps * cin_g, Cout)
+    group_of_out = torch.arange(Cout, device=packed.device) // cout_g
+    in_group = (group_of_out[None, :]
+                == torch.arange(groups, device=packed.device)[:, None])
+    wbd = w[:, None, :, :] * in_group[None, :, None, :].to(packed.dtype)
+    return wbd.reshape(taps * groups * cin_g, Cout)
+
+
+def _check_shapes(x, packed, groups):
+    if x.ndim != 4 or packed.ndim != 4:
+        raise ValueError(f"expected x [B,H,W,C] and codes [K,K,Cin_g,Cout], "
+                         f"got {tuple(x.shape)} and {tuple(packed.shape)}")
+    B, H, W, C = x.shape
+    K1, K2, cin_g, Cout = packed.shape
+    if K1 != K2:
+        raise ValueError(f"square kernels only, got {K1}x{K2}")
+    if C != cin_g * groups or Cout % groups:
+        raise ValueError(f"x {tuple(x.shape)} and codes {tuple(packed.shape)} "
+                         f"do not fit groups={groups}")
+    return B, H, W, C, K1, Cout
+
+
+def _scale_vector(scale, Cout: int, device) -> torch.Tensor:
+    """A scalar or per-channel scale of any shape → contiguous fp32 [Cout]."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=device).reshape(-1)
+    return s.expand(Cout).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _decode_tables(cfg: LogQuantConfig, device: torch.device):
+    """LUT[j] = 2^(j/steps) and 2^-e, exact in fp32; made once per device
+    (a host-to-device copy per call would stall the stream)."""
+    lut = torch.tensor([2.0 ** (j / cfg.steps) for j in range(cfg.steps)],
+                       dtype=torch.float32, device=device)
+    pow2 = torch.tensor([2.0 ** -e for e in range(cfg.bias + 1)],
+                        dtype=torch.float32, device=device)
+    return lut, pow2
+
+
+def decode_codes(packed: torch.Tensor,
+                 cfg: LogQuantConfig = DEFAULT_CFG) -> torch.Tensor:
+    """Eq. (8): packed int8 → fp32, ``sign · LUT[c & (steps-1)] ·
+    2^(c >> frac_bits)`` with c the unbiased code and LUT[j] = 2^(j/steps).
+
+    Every factor is exact in fp32 (a LUT entry times a power of two), so
+    this is the decode the CUDA kernel reproduces bit for bit.  The zero
+    code decodes to +0.0."""
+    p = packed.to(torch.int32)
+    biased = p & ((1 << cfg.bits) - 1)
+    code = biased - cfg.bias                     # ∈ [-bias, 0]
+    lut, pow2 = _decode_tables(cfg, packed.device)
+    mag = lut[code & (cfg.steps - 1)] * pow2[-(code >> cfg.frac_bits)]
+    sign = 1 - 2 * ((p >> cfg.bits) & 1)
+    return torch.where(biased != cfg.zero_code, sign * mag,
+                       torch.zeros_like(mag))
+
+
+def conv_nhwc(x, w_hwio, *, stride: int, pads, groups: int = 1):
+    """Float conv with NHWC activations and an HWIO kernel, explicit pads."""
+    (ph0, ph1), (pw0, pw1) = pads
+    xn = x.permute(0, 3, 1, 2)
+    if ph0 == ph1 and pw0 == pw1:
+        padding = (ph0, pw0)
+    else:
+        xn, padding = F.pad(xn, (pw0, pw1, ph0, ph1)), 0
+    y = F.conv2d(xn, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                 padding=padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def log_conv2d_blockwise(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
+                         *, stride: int = 1, padding="SAME", groups: int = 1,
+                         out_dtype=None):
+    """Decode the codes, then `F.conv2d` (NHWC ↔ NCHW at the boundary)."""
+    B, H, W, C, K, Cout = _check_shapes(x, packed, groups)
+    pads = normalize_padding(padding, K, stride, H, W)
+    w = decode_codes(packed, cfg) * _scale_vector(scale, Cout, packed.device)
+    y = conv_nhwc(x.to(torch.float32), w, stride=stride, pads=pads,
+                  groups=groups)
+    return y.to(out_dtype or x.dtype)
+
+
+def log_conv2d_ref(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
+                   *, stride: int = 1, padding="SAME", groups: int = 1,
+                   out_dtype=None):
+    """Full-materialisation oracle: explicit patches × `ref_log_matmul`."""
+    B, H, W, C, K, Cout = _check_shapes(x, packed, groups)
+    pads = normalize_padding(padding, K, stride, H, W)
+    patches, Ho, Wo = _im2col(x.to(torch.float32), K, stride, pads)
+    codes = _block_diag_codes(packed, groups)
+    scale = _scale_vector(scale, Cout, packed.device).reshape(1, Cout)
+    out = ref_log_matmul(patches.reshape(B * Ho * Wo, -1), codes, scale, cfg,
+                         out_dtype=out_dtype or x.dtype)
+    return out.reshape(B, Ho, Wo, Cout)
+
+
+# ---------------------------------------------------------------------------
+# lane-packed grouped-conv layout
+# ---------------------------------------------------------------------------
+
+LANES = 128  # lane width of the TPU matrix unit the packed layout targets
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def lane_pack_geometry(groups: int, cin_g: int, lane_pack: int | None = None,
+                       lanes: int = LANES) -> dict:
+    """How many groups share one lane block for a grouped conv.
+
+    ``lane_pack``: ``None`` → auto (pack whenever ≥2 groups fit a block),
+    ``0``/``1`` → off, ``n ≥ 2`` → up to ``n`` groups per block.  Returns
+    ``{"g_b", "cin_lane", "n_sb"}``: groups per block (1 = off), each
+    group's channel slot (`cin_g` padded to a power of two) and the
+    superblock count ``ceil(groups / g_b)``."""
+    off = dict(g_b=1, cin_lane=cin_g, n_sb=groups)
+    if groups <= 1 or (lane_pack is not None and lane_pack <= 1):
+        return off
+    cin_lane = _next_pow2(cin_g)
+    g_b = lanes // cin_lane if cin_lane <= lanes else 0
+    if lane_pack is not None:
+        g_b = min(g_b, lane_pack)
+    g_b = min(g_b, groups)
+    if g_b < 2:
+        return off
+    return dict(g_b=g_b, cin_lane=cin_lane, n_sb=-(-groups // g_b))
+
+
+def lane_pack_codes(packed, groups: int, g_b: int, cin_lane: int):
+    """packed [K, K, cin_g, Cout] → [n_sb, K*K, g_b*cin_lane, Cout//groups]
+    int8 codes; lane ``g*cin_lane + i`` of a superblock holds group ``g``'s
+    channel ``i``.  Padding uses int8 0, the zero code."""
+    K1, K2, cin_g, Cout = packed.shape
+    taps, cout_g = K1 * K2, Cout // groups
+    n_sb = -(-groups // g_b)
+    w = packed.reshape(taps, cin_g, groups, cout_g)
+    # F.pad pads trailing dims first: (cout_g, groups, cin_g)
+    w = F.pad(w, (0, 0, 0, n_sb * g_b - groups, 0, cin_lane - cin_g))
+    w = w.permute(2, 0, 1, 3).reshape(n_sb, g_b, taps, cin_lane, cout_g)
+    return w.permute(0, 2, 1, 3, 4).reshape(n_sb, taps, g_b * cin_lane,
+                                            cout_g).contiguous()
+
+
+def lane_unpack_codes(packed_lp, shape, groups: int, g_b: int,
+                      cin_lane: int):
+    """Inverse of `lane_pack_codes`: → the natural [K, K, cin_g, Cout]."""
+    K1, K2, cin_g, Cout = shape
+    taps, cout_g = K1 * K2, Cout // groups
+    n_sb = packed_lp.shape[0]
+    w = packed_lp.reshape(n_sb, taps, g_b, cin_lane, cout_g)
+    w = w.permute(0, 2, 1, 3, 4).reshape(n_sb * g_b, taps, cin_lane, cout_g)
+    w = w[:groups, :, :cin_g, :]
+    return w.permute(1, 2, 0, 3).reshape(K1, K2, cin_g, Cout).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+_I32_MAX = 2 ** 31 - 1
+
+
+def _kernel_fn():
+    fn = _build.load("log_conv2d").log_conv2d_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 19
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
+                     stride: int = 1, padding="SAME", groups: int = 1,
+                     lane: tuple[int, int] | None = None):
+    """NHWC conv on the CUDA kernel `csrc/log_conv2d.cu` → fp32 NHWC.
+
+    x: fp32 [B, H, W, C], contiguous.  packed: contiguous int8 codes, either
+    natural HWIO [K, K, C//groups, Cout] or, with ``lane=(g_b, cin_lane)``,
+    the lane-packed [n_sb, K*K, g_b*cin_lane, Cout//groups] that
+    `lane_pack_codes` makes, read as stored.  scale: scalar or
+    per-output-channel.
+
+    A CUDA tensor launches the kernel (and adds one to
+    ``log_conv2d_fused.launches``) or raises; a CPU tensor runs the plain
+    `log_conv2d_blockwise`."""
+    if x.ndim != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"log_conv2d_fused takes contiguous fp32 NHWC "
+                         f"activations, got {x.dtype} {tuple(x.shape)} "
+                         f"contiguous={x.is_contiguous()}")
+    if packed.dtype != torch.int8 or not packed.is_contiguous():
+        raise ValueError(f"log_conv2d_fused takes contiguous int8 codes, got "
+                         f"{packed.dtype} contiguous={packed.is_contiguous()}")
+    if packed.device != x.device:
+        raise ValueError(f"x on {x.device} but codes on {packed.device}")
+    B, H, W, C = x.shape
+    if C % groups:
+        raise ValueError(f"C={C} is not a multiple of groups={groups}")
+    cin_g = C // groups
+    if lane is None:
+        _, _, _, _, K, Cout = _check_shapes(x, packed, groups)
+        cout_g = Cout // groups
+        g_b, w_sb, w_gl = 1, cout_g, 0
+        w_tap, w_in = cin_g * Cout, Cout
+    else:
+        g_b, cin_lane = lane
+        n_sb, taps, L, cout_g = packed.shape
+        K = int(round(taps ** 0.5))
+        Cout = groups * cout_g
+        if (K * K != taps or L != g_b * cin_lane or cin_lane < cin_g
+                or n_sb != -(-groups // g_b)):
+            raise ValueError(f"lane-packed codes {tuple(packed.shape)} do not "
+                             f"fit lane={lane}, C={C}, groups={groups}")
+        w_sb, w_gl, w_tap, w_in = taps * L * cout_g, cin_lane * cout_g, \
+            L * cout_g, cout_g
+    scale = _scale_vector(scale, Cout, x.device)
+
+    if x.device.type == "cpu":
+        codes = packed if lane is None else lane_unpack_codes(
+            packed, (K, K, cin_g, Cout), groups, g_b, lane[1])
+        return log_conv2d_blockwise(x, codes, scale, cfg, stride=stride,
+                                    padding=padding, groups=groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"log_conv2d_fused runs on CUDA or CPU tensors, "
+                         f"got {x.device}")
+    if cfg.frac_bits not in (0, 1) or not 1 <= cfg.bits <= 7:
+        raise ValueError(f"the CUDA kernel decodes bits ≤ 7 and frac_bits "
+                         f"∈ {{0, 1}}, got {cfg}")
+    pads = normalize_padding(padding, K, stride, H, W)
+    Ho, Wo = _out_size(H, K, stride, pads[0]), _out_size(W, K, stride, pads[1])
+    if min(Ho, Wo) < 1:
+        raise ValueError(f"empty output for x {tuple(x.shape)}, K={K}, "
+                         f"stride={stride}, pads={pads}")
+    y = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
+    if max(x.numel(), y.numel(), packed.numel()) > _I32_MAX or groups > 65535:
+        raise ValueError("tensor too large for the kernel's 32-bit indexing")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                       y.data_ptr(), B, H, W, C, Ho, Wo, Cout, K, stride,
+                       pads[0][0], pads[1][0], groups, g_b, w_sb, w_gl, w_tap,
+                       w_in, cfg.bits, cfg.frac_bits, stream)
+    if err != 0:
+        raise RuntimeError(f"log_conv2d CUDA launch failed: cudaError {err}")
+    log_conv2d_fused.launches += 1
+    return y
+
+
+log_conv2d_fused.launches = 0  # kernel launches; chip_smoke.py resets it

@@ -1,0 +1,313 @@
+"""The port's conv stack (`repro_torch.kernels`) against the JAX package's.
+
+On the CPU the port's `ref` and `blockwise` (and the CUDA kernel's wrapper,
+which runs its plain version for a CPU tensor) are held against JAX's
+`ref`, `blockwise` and `log_conv2d_fused_pallas(interpret=True)` on the
+sweeps of `tests/test_conv2d.py`, at its tolerances (`:58`, `:119-125`).
+The test marked ``cuda`` holds the hand-written kernel itself against its
+plain versions; it runs only where there is a card.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+try:  # the machine with the card has no JAX: only the cuda test runs there
+    import jax.numpy as jnp
+    from repro.core.logquant import LogQuantConfig as JaxLogQuantConfig
+    from repro.core.logquant import quantize_tensor as jquantize
+    from repro.kernels import log_conv2d as jlc
+    from repro.kernels import ops as jops
+    from repro.kernels.log_matmul import _decode_block
+except ImportError:
+    jnp = None
+
+from repro_torch.core.logquant import QuantizedTensor  # noqa: E402
+from repro_torch.core.logquant import quantize_tensor as tquantize  # noqa: E402
+from repro_torch.kernels import log_conv2d as tlc  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.serving.quantize import quantize_cnn_params  # noqa: E402
+
+SHAPES = [  # B, H, W, C, K, P, stride, padding, groups (test_conv2d.py:32)
+    (2, 8, 8, 5, 3, 7, 1, "SAME", 1),
+    (1, 9, 7, 4, 3, 6, 2, "SAME", 1),
+    (2, 8, 8, 6, 3, 6, 1, "VALID", 6),    # depthwise
+    (1, 10, 10, 4, 1, 8, 1, "VALID", 1),  # 1x1 (pwconv)
+    (1, 8, 8, 6, 3, 4, 2, "SAME", 2),     # grouped, stride 2
+    (1, 8, 8, 3, 5, 4, 2, 2, 1),          # K=5, int padding (ResNet stem)
+    (1, 8, 8, 3, 3, 5, 1, ((1, 2), (0, 1)), 1),  # explicit asymmetric pairs
+    (1, 10, 10, 4, 3, 6, 2, "SAME", 1),   # SAME, even input, stride 2
+    (1, 9, 9, 4, 3, 5, 2, "VALID", 1),    # VALID where Ho/Wo round down
+]
+
+LANE_SHAPES = [  # test_conv2d.py:89
+    (1, 8, 8, 6, 3, 6, 1, "SAME", 6),      # depthwise, multiplier 1
+    (1, 8, 8, 6, 3, 12, 1, "SAME", 6),     # depthwise, Cout = Cin * 2
+    (1, 9, 7, 12, 3, 8, 2, "SAME", 4),     # cin_g=3
+    (1, 8, 8, 8, 3, 8, 1, "VALID", 4),     # cin_g=2
+    (2, 8, 8, 16, 5, 8, 2, 2, 4),          # cin_g=4, K=5, int padding
+    (1, 8, 8, 4, 3, 8, 1, ((1, 2), (0, 1)), 4),  # asymmetric, depthwise
+]
+
+
+@pytest.fixture(autouse=True)
+def _reference_package(request):
+    if jnp is None and request.node.get_closest_marker("cuda") is None:
+        pytest.skip("needs jax: the JAX package is the reference")
+
+
+def _inputs(seed, B, H, W, C, K, P, groups):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    w = rng.normal(size=(K, K, C // groups, P)).astype(np.float32)
+    return x, w
+
+
+def _lane_qt(qt, groups):
+    """The ``lane_packed`` QuantizedTensor `quantize_cnn_params` would bake."""
+    lp = tlc.lane_pack_geometry(groups, qt.shape[2])
+    codes = tlc.lane_pack_codes(qt.packed, groups, lp["g_b"], lp["cin_lane"])
+    return QuantizedTensor(codes, qt.scale.reshape(-1), qt.cfg, qt.shape,
+                           layout="lane_packed",
+                           layout_meta=(lp["g_b"], lp["cin_lane"], groups))
+
+
+@pytest.mark.parametrize("B,H,W,C,K,P,stride,padding,groups",
+                         SHAPES + LANE_SHAPES)
+def test_port_conv_matches_jax(B, H, W, C, K, P, stride, padding, groups):
+    x, w = _inputs(0, B, H, W, C, K, P, groups)
+    kw = dict(stride=stride, padding=padding, groups=groups)
+    qj = jquantize(jnp.asarray(w))
+    qt = tquantize(torch.from_numpy(w))
+    np.testing.assert_array_equal(qt.packed.numpy(), np.asarray(qj.packed))
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    y_jref = np.asarray(jops.conv2d(xj, qj, impl="ref", **kw))
+    jax_outs = {
+        "blockwise": jops.conv2d(xj, qj, impl="blockwise", **kw),
+        "fused": jlc.log_conv2d_fused_pallas(xj, qj.packed, qj.scale,
+                                             interpret=True, **kw)}
+    port_outs = {
+        "ref": tops.conv2d(xt, qt, impl="ref", **kw),
+        "blockwise": tops.conv2d(xt, qt, impl="blockwise", **kw),
+        "cuda-wrapper": tops.conv2d(xt, qt, impl="cuda", **kw)}
+    if tlc.lane_pack_geometry(groups, C // groups)["g_b"] > 1:
+        port_outs["cuda-wrapper lane"] = tops.conv2d(
+            xt, _lane_qt(qt, groups), impl="cuda", **kw)
+    tol = 1e-4 * float(np.abs(y_jref).max() + 1)
+    for name, y in port_outs.items():
+        assert tuple(y.shape) == y_jref.shape, name
+        for jname, yj in jax_outs.items():
+            np.testing.assert_allclose(y.numpy(), np.asarray(yj), atol=tol,
+                                       err_msg=f"port {name} vs jax {jname}")
+        np.testing.assert_allclose(y.numpy(), y_jref, atol=tol,
+                                   err_msg=f"port {name} vs jax ref")
+
+
+def test_padding_geometry_matches_jax():
+    for size in range(1, 12):
+        for k in (1, 3, 5):
+            for s in (1, 2, 3):
+                assert tlc._pad_pair(size, k, s) == jlc._pad_pair(size, k, s)
+                assert tlc._out_size(size, k, s, (1, 2)) == \
+                    jlc._out_size(size, k, s, (1, 2))
+    for pad in ("SAME", "valid", 2, (1, 0), ((1, 2), (0, 1))):
+        assert tlc.normalize_padding(pad, 3, 2, 9, 8) == \
+            jlc.normalize_padding(pad, 3, 2, 9, 8)
+    with pytest.raises(ValueError):
+        tlc.normalize_padding("FULL", 3, 1, 8, 8)
+
+
+def test_im2col_and_block_diag_codes_match_jax():
+    x, w = _inputs(1, 2, 7, 9, 6, 3, 4, 2)
+    pads = tlc.normalize_padding("SAME", 3, 2, 7, 9)
+    pj, hj, wj = jlc._im2col(jnp.asarray(x), 3, 2, pads)
+    pt, ht, wt = tlc._im2col(torch.from_numpy(x), 3, 2, pads)
+    assert (ht, wt) == (hj, wj)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    codes = np.array(jquantize(jnp.asarray(w)).packed)
+    np.testing.assert_array_equal(
+        tlc._block_diag_codes(torch.from_numpy(codes), 2).numpy(),
+        np.asarray(jlc._block_diag_codes(jnp.asarray(codes), 2)))
+
+
+def test_lane_pack_layout_matches_jax_byte_for_byte():
+    rng = np.random.default_rng(6)
+    for groups in (1, 2, 3, 4, 6, 32, 200):
+        for cin_g in (1, 2, 3, 4, 5, 64, 200):
+            for lane_pack in (None, 1, 4):
+                assert tlc.lane_pack_geometry(groups, cin_g, lane_pack) == \
+                    jlc.lane_pack_geometry(groups, cin_g, lane_pack)
+    for C, groups, P, K in ((6, 6, 6, 3), (12, 4, 8, 3), (16, 4, 8, 5),
+                            (200, 200, 200, 3)):
+        cin_g = C // groups
+        codes = rng.integers(-128, 128, size=(K, K, cin_g, P)).astype(np.int8)
+        lp = jlc.lane_pack_geometry(groups, cin_g)
+        cj = np.asarray(jlc.lane_pack_codes(jnp.asarray(codes), groups,
+                                            lp["g_b"], lp["cin_lane"]))
+        ct = tlc.lane_pack_codes(torch.from_numpy(codes), groups, lp["g_b"],
+                                 lp["cin_lane"])
+        np.testing.assert_array_equal(ct.numpy(), cj)
+        back = tlc.lane_unpack_codes(ct, codes.shape, groups, lp["g_b"],
+                                     lp["cin_lane"])
+        np.testing.assert_array_equal(back.numpy(), codes)
+
+
+def test_decode_codes_is_exact_eq8():
+    """`decode_codes` (what the kernel reproduces bit for bit) equals the
+    exactly rounded ``sign·2^(code/2)`` for every int8 code; JAX's decodes
+    agree within the error of XLA's CPU `exp2` (up to ~1.01e-6 relative at
+    large negative exponents)."""
+    codes = np.arange(-128, 128).astype(np.int8)
+    p = codes.astype(np.int32)
+    biased = p & 63
+    exact = np.where(biased != 0, (1 - 2 * ((p >> 6) & 1))
+                     * 2.0 ** ((biased - 63) / 2.0), 0.0).astype(np.float32)
+    got = tlc.decode_codes(torch.from_numpy(codes)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), exact.view(np.int32))
+    np.testing.assert_allclose(
+        got, np.asarray(_decode_block(jnp.asarray(codes), JaxLogQuantConfig(),
+                                      jnp.float32)), rtol=2e-6, atol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(jlc.log_dequantize(jnp.asarray(codes), 1.0,
+                                           dtype=jnp.float32)),
+        rtol=2e-6, atol=0)
+
+
+def test_resolve_impl_follows_the_tensor_device():
+    assert tops.resolve_impl("conv2d", "auto", torch.device("cpu")) == \
+        "blockwise"
+    # the device decides; no card is needed to resolve "cuda"
+    assert tops.resolve_impl("conv2d", "auto", torch.device("cuda")) == "cuda"
+    assert tops.resolve_impl("conv2d", "ref", torch.device("cuda")) == "ref"
+    with pytest.raises(ValueError, match="unknown conv2d impl"):
+        tops.resolve_impl("conv2d", "pallas", torch.device("cpu"))
+    x = torch.zeros(1, 4, 4, 2)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tops.conv2d(x, torch.zeros(3, 3, 2, 2), impl="pallas_im2col")
+
+
+def test_kernel_wrapper_validates_inputs():
+    x, w = _inputs(2, 1, 6, 6, 4, 3, 4, 1)
+    qt = tquantize(torch.from_numpy(w))
+    xt = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="fp32"):
+        tlc.log_conv2d_fused(xt.double(), qt.packed, qt.scale)
+    with pytest.raises(ValueError, match="fp32"):
+        tlc.log_conv2d_fused(xt.transpose(1, 2), qt.packed, qt.scale)
+    with pytest.raises(ValueError, match="int8"):
+        tlc.log_conv2d_fused(xt, qt.packed.to(torch.int32), qt.scale)
+    with pytest.raises(ValueError, match="groups"):
+        tlc.log_conv2d_fused(xt, qt.packed, qt.scale, groups=3)
+    with pytest.raises(ValueError, match="lane-packed"):
+        tlc.log_conv2d_fused(xt, qt.packed, qt.scale, lane=(2, 4))
+    # a CPU tensor runs the plain version and launches nothing
+    before = tlc.log_conv2d_fused.launches
+    y = tlc.log_conv2d_fused(xt, qt.packed, qt.scale)
+    assert tlc.log_conv2d_fused.launches == before
+    np.testing.assert_array_equal(
+        y.numpy(), tlc.log_conv2d_blockwise(xt, qt.packed, qt.scale).numpy())
+
+
+def test_lane_layout_precedence(monkeypatch):
+    """`ops.conv2d`'s lane-layout precedence (the JAX `ops.py:249-271`
+    contract): a baked ``lane_packed`` layout rides onto the kernel as
+    stored when the call matches it; an explicit conflicting `lane_pack`,
+    other groups or a plain impl unpack it to HWIO first."""
+    C = 12
+    rng = np.random.default_rng(7)
+    w = rng.normal(size=(3, 3, 1, C)).astype(np.float32)
+    x = torch.from_numpy(rng.normal(size=(1, 8, 8, C)).astype(np.float32))
+    qp = quantize_cnn_params({"conv": {"w": torch.from_numpy(w),
+                                       "b": torch.zeros(C)}},
+                             conv_layout="lane_packed")
+    qt_lp = qp["conv"]["w"]
+    assert qt_lp.layout == "lane_packed"
+    g_b, cin_lane, meta_groups = qt_lp.layout_meta
+    assert meta_groups == C and g_b > 1
+    qt = tquantize(torch.from_numpy(w))
+    np.testing.assert_array_equal(qt_lp.dequantize(torch.float32).numpy(),
+                                  qt.dequantize(torch.float32).numpy())
+
+    seen = []
+    wrapper = tlc.log_conv2d_fused
+
+    def spy(x, packed, scale, cfg, *, lane=None, **kw):
+        seen.append((tuple(packed.shape), lane))
+        return wrapper(x, packed, scale, cfg, lane=lane, **kw)
+
+    monkeypatch.setattr(tops, "log_conv2d_fused", spy)
+    y_pre = tops.conv2d(x, qt_lp, impl="cuda", groups=C)
+    y_fly = tops.conv2d(x, qt, impl="cuda", groups=C)
+    y_off = tops.conv2d(x, qt_lp, impl="cuda", groups=C,
+                        config=tops.ConvConfig(lane_pack=1))
+    y_same = tops.conv2d(x, qt_lp, impl="cuda", groups=C,
+                         config={"lane_pack": g_b})
+    assert seen == [(tuple(qt_lp.packed.shape), (g_b, cin_lane)),
+                    ((3, 3, 1, C), None), ((3, 3, 1, C), None),
+                    (tuple(qt_lp.packed.shape), (g_b, cin_lane))]
+    for y in (y_fly, y_off, y_same):
+        np.testing.assert_array_equal(y_pre.numpy(), y.numpy())
+    # a plain impl unpacks: bit-identical to the natural layout
+    y_bw = tops.conv2d(x, qt, impl="blockwise", groups=C)
+    np.testing.assert_array_equal(
+        tops.conv2d(x, qt_lp, impl="blockwise", groups=C).numpy(),
+        y_bw.numpy())
+    # and the whole thing agrees with the JAX package's prepacked path
+    qj = jquantize(jnp.asarray(w))
+    y_j = np.asarray(jops.conv2d(jnp.asarray(x.numpy()), qj, impl="pallas",
+                                 interpret=True, groups=C))
+    np.testing.assert_allclose(y_pre.numpy(), y_j,
+                               atol=1e-4 * float(np.abs(y_j).max() + 1))
+    # non-depthwise leaves fall back to conv_taps
+    qp2 = quantize_cnn_params({"c": {"w": torch.from_numpy(
+        rng.normal(size=(3, 3, 4, 8)).astype(np.float32))}},
+        conv_layout="lane_packed")
+    assert qp2["c"]["w"].layout == "conv_taps"
+
+
+def test_conv2d_accepts_unpacked_weights():
+    x, w = _inputs(8, 1, 6, 6, 3, 3, 4, 1)
+    xt = torch.from_numpy(x)
+    y1 = tops.conv2d(xt, torch.from_numpy(w), impl="blockwise")
+    y2 = tops.conv2d(xt, tquantize(torch.from_numpy(w)), impl="blockwise")
+    np.testing.assert_array_equal(y1.numpy(), y2.numpy())
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_versions(cuda_device):
+    """The hand-written kernel against `log_conv2d_ref` and
+    `log_conv2d_blockwise` on the card, in natural and lane-packed layouts,
+    plus the bit-exact decode of all 128 codes."""
+    dev = cuda_device
+    codes = torch.arange(128, dtype=torch.int8, device=dev)
+    y = tlc.log_conv2d_fused(torch.ones((1, 1, 1, 1), device=dev),
+                             codes.reshape(1, 1, 1, 128),
+                             torch.ones(128, device=dev), padding="VALID")
+    assert torch.equal(y.reshape(-1).view(torch.int32),
+                       tlc.decode_codes(codes).view(torch.int32))
+    for (B, H, W, C, K, P, stride, padding, groups) in SHAPES + LANE_SHAPES:
+        x, w = _inputs(9, B, H, W, C, K, P, groups)
+        xt = torch.from_numpy(x).to(dev)
+        qt = tquantize(torch.from_numpy(w).to(dev))
+        kw = dict(stride=stride, padding=padding, groups=groups)
+        y_ref = tlc.log_conv2d_ref(xt, qt.packed, qt.scale, **kw)
+        tol = 1e-4 * (float(y_ref.abs().max()) + 1)
+        before = tlc.log_conv2d_fused.launches
+        outs = [tlc.log_conv2d_fused(xt, qt.packed, qt.scale, **kw),
+                tops.conv2d(xt, _lane_qt(qt, groups), impl="cuda", **kw)
+                if groups > 1 else None]
+        torch.cuda.synchronize()
+        assert tlc.log_conv2d_fused.launches == before + 1 + (groups > 1)
+        y_bw = tlc.log_conv2d_blockwise(xt, qt.packed, qt.scale, **kw)
+        for y in filter(lambda t: t is not None, outs):
+            assert float((y - y_ref).abs().max()) <= tol
+            assert float((y - y_bw).abs().max()) <= tol
