@@ -26,7 +26,34 @@ goes wrong:
      (device busy time, idle share, top kernels);
   6. per-conv times at batch 8: kernel, plain version (im2col x matmul),
      the library call (decode + `F.conv2d`, and `F.conv2d` alone) and the
-     fp32 bound.
+     fp32 bound;
+  7. the log_matmul kernel against `ref_log_matmul`: the decode table bit
+     for bit through a 1 x 128 product, the shapes of
+     `tests/test_kernels_log_matmul.py`, ragged shapes, and M in {1, 4, 32}
+     at every (K, N) of gemma-2b's dense layers, in fp32 (tolerance
+     1e-4 * (max|y| + 1)) and bf16 (8e-3 * (max|y| + 1));
+  8. the attention kernel against `ref_attention` and the blockwise
+     version: the sweeps of `tests/test_kernels_attention.py` (Hkv in
+     {1, 2, 8} x window x ragged T), per-row decode offsets, the ring
+     offset, and gemma-2b's shapes (prefill B=1, T in {32, 2048}; decode
+     B=4, Tq=1, Tk in {64, 8192}), tolerance 2e-4 * (max|o| + 1) in fp32
+     (8e-3 with bf16 queries);
+  9. the LM slice: gemma-2b at full width with random weights from the
+     seed, packed by `quantize_params` and served by the port's
+     `ServeEngine` at `launch/serve.py`'s defaults (8 requests, 16 new
+     tokens, 4 slots, greedy).  log_matmul must launch 126 times and
+     attention 18 times per forward (prefills + decode steps, from
+     `engine.stats`); in one prefill and one decode step every log_matmul
+     and attention call is held against its plain version on the same
+     input; a second engine on blockwise attention and the plain matmul
+     gives the greedy-token agreement and the prefill logit difference
+     (tolerance 0.1 * (max|l| + 1)); prefill ms per bucket, decode-step ms,
+     tokens/s and one profiled decode step are printed;
+ 10. per-kernel times at the slice's shapes: log_matmul over one decode
+     step's 126 products and attention over its 18 calls, with the plain
+     version, the library call (`torch.matmul` on pre-decoded weights;
+     `F.scaled_dot_product_attention` with the kv head expanded) and the
+     bound.
 
 Details go to `chiprun_out/chip_smoke.json`.  The last three lines are the
 kernel table as JSON, the card's name and power limit, and
@@ -45,6 +72,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -54,6 +82,12 @@ PEAK_HBM_BYTES = 3.35e12
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
                  "squeezenet": 26}
+LM_ARCH = "gemma-2b"
+GEMMA_KN = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)]
+MM_SHAPES = ([(128, 128, 128), (256, 384, 128), (64, 128, 256),
+              (130, 257, 129), (8, 512, 64),      # test_kernels_log_matmul
+              (3, 1000, 77), (33, 4097, 300), (5, 31, 16)]   # ragged
+             + [(m, k, n) for m in (1, 4, 32) for k, n in GEMMA_KN])
 
 SHAPES = [  # B, H, W, C, K, P, stride, padding, groups (tests/test_conv2d.py)
     (2, 8, 8, 5, 3, 7, 1, "SAME", 1),
@@ -418,6 +452,458 @@ def phase_conv_times(dev) -> tuple[dict, list]:
     return times, nets
 
 
+# ---------------------------------------------------------------------------
+# the LM slice: log_matmul (B2) and attention (B3)
+# ---------------------------------------------------------------------------
+
+
+def _err_tol(y, want, rel: float) -> tuple[float, float]:
+    tol = rel * (float(want.float().abs().max()) + 1)
+    return float((y.float() - want.float()).abs().max()), tol
+
+
+def phase_log_matmul(dev) -> tuple[list, float]:
+    from repro_torch.core.logquant import quantize_tensor
+    from repro_torch.kernels.log_conv2d import decode_codes
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.kernels.ref import ref_log_matmul
+    codes = torch.arange(128, dtype=torch.int8, device=dev).reshape(1, 128)
+    y = log_matmul_cuda(torch.ones((1, 1), device=dev), codes,
+                        torch.ones(128, device=dev))
+    torch.cuda.synchronize()
+    bad = int((y.reshape(-1).view(torch.int32)
+               != decode_codes(codes).reshape(-1).view(torch.int32)).sum())
+    print(f"log_matmul decode table: {128 - bad}/128 codes bit-exact")
+    if bad:
+        fail(f"{bad} codes decoded by log_matmul differ from decode_codes")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows, max_err = [], 0.0
+    for m, k, n in MM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        qt = quantize_tensor(torch.randn((k, n), generator=gen, device=dev)
+                             * k ** -0.5)
+        for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
+            xd = x.to(dtype)
+            got = log_matmul_cuda(xd, qt.packed, qt.scale)
+            want = ref_log_matmul(xd, qt.packed, qt.scale)
+            torch.cuda.synchronize()
+            err, tol = _err_tol(got, want, rel)
+            if got.dtype != dtype or got.shape != want.shape or err > tol \
+                    or not bool(torch.isfinite(got).all()):
+                fail(f"log_matmul {m}x{k}x{n} {dtype}: |kernel - ref| "
+                     f"{err:.3e} > tol {tol:.3e} (or shape/dtype/finite)")
+            rows.append({"m": m, "k": k, "n": n, "dtype": str(dtype),
+                         "err": err, "tol": tol})
+            max_err = max(max_err, err)
+    worst = max(r["err"] / r["tol"] for r in rows)
+    print(f"log_matmul: {len(rows)} cases within tol (fp32 and bf16), max "
+          f"|kernel - ref| {max_err:.3e}, worst err/tol {worst:.3e}")
+    return rows, max_err
+
+
+def phase_attention(dev) -> tuple[list, float]:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ops import AttentionConfig, attention
+    from repro_torch.kernels.ref import ref_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows4 = torch.tensor([63, 40, 17, 5], device=dev)
+    cases = [((1, 48, 48, 8, hkv, 16), dict(window=w), f32, f32)
+             for hkv in (1, 2, 8) for w in (None, 16)]
+    cases += [
+        ((1, 128, 128, 4, 4, 64), {}, f32, f32),
+        ((2, 256, 256, 8, 2, 64), {}, f32, f32),
+        ((1, 256, 256, 4, 1, 64), dict(window=64), f32, f32),
+        ((1, 130, 130, 4, 2, 64), {}, f32, f32),
+        ((3, 1, 32, 8, 2, 16), dict(q_offset=torch.tensor(
+            [5, 20, 40], device=dev), k_offset=torch.tensor(
+            [-26, -11, 9], device=dev), window=16), f32, f32),
+        ((1, 1, 32, 4, 2, 16), dict(window=8, q_offset=22, k_offset=-9),
+         f32, f32),
+        ((1, 32, 32, 8, 1, 256), {}, f32, f32),
+        ((1, 2048, 2048, 8, 1, 256), {}, f32, f32),
+        ((4, 1, 64, 8, 1, 256), dict(q_offset=rows4), f32, f32),
+        ((4, 1, 8192, 8, 1, 256), dict(q_offset=rows4 * 128 + 63), f32, f32),
+        ((4, 1, 64, 8, 1, 256), dict(q_offset=rows4), bf16, f32),
+        ((1, 2048, 2048, 8, 1, 256), {}, bf16, bf16),
+    ]
+    rows, max_err = [], 0.0
+    for (b, tq, tk, h, hkv, d), kw, qdt, kvdt in cases:
+        q = torch.randn((b, tq, h, d), generator=gen, device=dev).to(qdt)
+        k, v = (torch.randn((b, tk, hkv, d), generator=gen,
+                            device=dev).to(kvdt) for _ in range(2))
+        got = flash_attention_cuda(q, k, v, causal=True, **kw)
+        want = ref_attention(q, k, v, causal=True, **kw)
+        bw = attention(q, k, v, causal=True, impl="blockwise",
+                       config=AttentionConfig(block_k=1024), **kw)
+        torch.cuda.synchronize()
+        rel = 2e-4 if qdt == f32 else 8e-3
+        err_r, tol = _err_tol(got, want, rel)
+        err_b, _ = _err_tol(got, bw, rel)
+        label = (f"attention B={b} Tq={tq} Tk={tk} H={h} Hkv={hkv} D={d} "
+                 f"{ {k_: (v_.tolist() if torch.is_tensor(v_) else v_) for k_, v_ in kw.items()} } "
+                 f"q {qdt} kv {kvdt}")
+        if got.shape != q.shape or got.dtype != q.dtype \
+                or max(err_r, err_b) > tol \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"{label}: |kernel - ref| {err_r:.3e}, |kernel - "
+                 f"blockwise| {err_b:.3e}, tol {tol:.3e}")
+        rows.append({"case": label, "err_ref": err_r, "err_blockwise": err_b,
+                     "tol": tol})
+        max_err = max(max_err, err_r, err_b)
+    worst = max(max(r["err_ref"], r["err_blockwise"]) / r["tol"]
+                for r in rows)
+    print(f"attention: {len(rows)} cases within tol, max |kernel - plain| "
+          f"{max_err:.3e}, worst err/tol {worst:.3e}")
+    return rows, max_err
+
+
+def _serve_args():
+    from repro_torch.launch import serve
+    # launch/serve.py's defaults, on the card, with the engine's telemetry
+    # (host-clock histograms) on
+    return serve.parse_args(["--arch", LM_ARCH, "--device", "cuda",
+                             "--telemetry", "on"])
+
+
+def _checked_ops(ratios: dict):
+    """Stand-ins for `ops.log_matmul` / `ops.attention` that also run the
+    plain version on the same input and record err/tol."""
+    from repro_torch.kernels import ops
+    lm, at = ops.log_matmul, ops.attention
+
+    def log_matmul(x, qt, **kw):
+        y = lm(x, qt, **kw)
+        err, tol = _err_tol(y, lm(x, qt, impl="blockwise"),
+                            1e-4 if y.dtype == torch.float32 else 8e-3)
+        ratios["log_matmul"].append(err / tol)
+        return y
+
+    def attention(q, k, v, **kw):
+        y = at(q, k, v, **kw)
+        rel = 2e-4 if y.dtype == torch.float32 else 8e-3
+        for impl in ("ref", "blockwise"):
+            err, tol = _err_tol(y, at(q, k, v, **dict(kw, impl=impl)), rel)
+            ratios["attention"].append(err / tol)
+        return y
+
+    return log_matmul, attention
+
+
+def _plain_matmul():
+    from repro_torch.kernels import ops
+    lm = ops.log_matmul
+    return lambda x, qt, **kw: lm(x, qt, impl="blockwise")
+
+
+class _patched:
+    """Swap attributes of `repro_torch.kernels.ops` inside a with block."""
+
+    def __init__(self, **fns):
+        self.fns, self.saved = fns, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        for name, fn in self.fns.items():
+            self.saved[name] = getattr(ops, name)
+            setattr(ops, name, fn)
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+        return False
+
+
+def phase_serving(dev) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    args = _serve_args()
+    t0 = time.perf_counter()
+    engine = serve.build_engine(args)
+    torch.cuda.synchronize()
+    cfg = engine.cfg
+    n_layers = cfg.n_layers
+    res = {"arch": cfg.name, "build_s": time.perf_counter() - t0,
+           "attn_impl": cfg.attn_impl,
+           "args": {k: v for k, v in vars(args).items()}}
+    print(f"slice {cfg.name}: built and packed in {res['build_s']:.2f} s, "
+          f"attn_impl={cfg.attn_impl}, {cfg.param_count() / 1e9:.3f} G "
+          f"params, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if cfg.attn_impl != "cuda":
+        fail(f"the engine resolved attn_impl to {cfg.attn_impl!r}, not cuda")
+
+    # the main path: the counts are zeroed just before it and read just after
+    reqs = serve.make_requests(args, cfg.vocab)
+    log_matmul_cuda.launches = 0
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lm, fa = log_matmul_cuda.launches, flash_attention_cuda.launches
+    st = engine.stats
+    fwd = st["prefill_calls"] + st["decode_steps"]
+    res.update(launches_log_matmul=lm, launches_attention=fa, stats=st,
+               first_run_s=wall)
+    print(f"main path: {len(done)} requests, {st}; log_matmul launches {lm} "
+          f"(expected {7 * n_layers} x {fwd} = {7 * n_layers * fwd}), "
+          f"attention launches {fa} (expected {n_layers} x {fwd} = "
+          f"{n_layers * fwd}); {wall:.3f} s cold")
+    if lm != 7 * n_layers * fwd or fa != n_layers * fwd:
+        fail("kernel launch counts on the main path do not match the "
+             "engine's forwards")
+    if len(done) != args.requests or any(
+            len(r.output) != args.max_new or min(r.output) < 0
+            or max(r.output) >= cfg.vocab for r in done):
+        fail("a request came back with the wrong number of tokens or an "
+             "out-of-vocabulary token")
+    outputs = {r.uid: r.output for r in done}
+
+    # steady timing: the same requests again, on a fresh engine over the
+    # same (warm) weights and kernels
+    steady = ServeEngine(cfg, engine.params, engine.ecfg)
+    t0 = time.perf_counter()
+    for r in serve.make_requests(args, cfg.vocab):
+        steady.submit(r)
+    done2 = steady.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.output) for r in done2)
+    hist = steady.metrics_snapshot()["engine"]["histograms"]
+    step, pre = hist["serve_decode_step_s"], hist["serve_prefill_s"]
+    res.update(steady_s=wall, tokens=toks, tokens_per_s=toks / wall,
+               decode_step_ms_mean=step["mean"] * 1e3,
+               decode_step_ms_p50=step["p50"] * 1e3,
+               decode_step_ms_min=step["min"] * 1e3,
+               prefill_ms_mean=pre["mean"] * 1e3,
+               ttft_ms_p50=hist["serve_ttft_s"]["p50"] * 1e3,
+               repeat_identical=all(r.output == outputs[r.uid]
+                                    for r in done2))
+    print(f"steady run: {toks} tokens in {wall:.3f} s ({toks / wall:.1f} "
+          f"tokens/s); decode step mean {res['decode_step_ms_mean']:.3f} ms"
+          f" (min {res['decode_step_ms_min']:.3f}, p50 bucket "
+          f"{res['decode_step_ms_p50']:.3f}); prefill mean "
+          f"{res['prefill_ms_mean']:.3f} ms; outputs repeat the first run: "
+          f"{res['repeat_identical']}")
+
+    # prefill per bucket (prompts of 3..15 tokens pad to 4, 8 or 16)
+    res["prefill_ms"] = {}
+    for T in (3, 8, 15):
+        prompt = np.arange(1, T + 1)
+        ms = 1e3 * _host_time(lambda: steady._prefill(0, prompt), 5)
+        res["prefill_ms"][f"T={T} bucket {1 << (T - 1).bit_length()}"] = ms
+    print(f"prefill ms per bucket: {res['prefill_ms']}")
+
+    # one prefill and one decode step with every call held against plain
+    ratios = {"log_matmul": [], "attention": []}
+    eng_c = ServeEngine(cfg, engine.params, engine.ecfg)
+    eng_c.submit(serve.make_requests(args, cfg.vocab)[0])
+    lm_c, at_c = _checked_ops(ratios)
+    with _patched(log_matmul=lm_c, attention=at_c):
+        eng_c.step()
+        torch.cuda.synchronize()
+    res["per_call"] = {k: {"calls": len(v), "worst_err_over_tol": max(v)}
+                       for k, v in ratios.items()}
+    print(f"per-call check over one prefill and one decode step: "
+          f"{res['per_call']}")
+    if len(ratios["log_matmul"]) != 2 * 7 * n_layers \
+            or len(ratios["attention"]) != 2 * 2 * n_layers \
+            or max(max(v) for v in ratios.values()) > 1.0:
+        fail("a log_matmul or attention call of the slice disagrees with "
+             "its plain version (or was not seen)")
+
+    # a second engine on the plain versions, the same weights
+    eng_p = ServeEngine(cfg, engine.params, EngineConfig(
+        max_batch=args.max_batch, max_prompt=args.max_prompt,
+        max_len=args.max_len, attn_impl="blockwise"))
+    with _patched(log_matmul=_plain_matmul()):
+        for r in serve.make_requests(args, cfg.vocab):
+            eng_p.submit(r)
+        plain = {r.uid: r.output for r in eng_p.run()}
+        prompt = reqs[0].prompt
+        l_plain = eng_p._prefill(0, prompt).float()
+    l_kern = steady._prefill(0, prompt).float()
+    torch.cuda.synchronize()
+    diff = float((l_kern - l_plain).abs().max())
+    tol = 0.1 * (float(l_plain.abs().max()) + 1)
+    prefix = [next((i for i, (a, b) in enumerate(zip(outputs[u], plain[u]))
+                    if a != b), len(plain[u])) for u in plain]
+    res["vs_plain"] = {
+        "prefill_logit_diff": diff, "tol": tol,
+        "max_abs_logit": float(l_plain.abs().max()),
+        "same_top1": int(l_kern.argmax()) == int(l_plain.argmax()),
+        "requests_identical": sum(p == args.max_new for p in prefix),
+        "agreeing_prefix_tokens": prefix,
+        "token_agreement": float(np.mean([outputs[u][i] == plain[u][i]
+                                          for u in plain
+                                          for i in range(args.max_new)]))}
+    print(f"vs plain engine (blockwise attention, decode-then-matmul): "
+          f"{res['vs_plain']}")
+    if diff > tol:
+        fail(f"prefill logits differ from the plain engine's by {diff:.3e}"
+             f" > tol {tol:.3e}")
+
+    # one profiled decode step with all slots busy
+    eng_d = ServeEngine(cfg, engine.params, engine.ecfg)
+    for r in serve.make_requests(args, cfg.vocab)[:args.max_batch]:
+        eng_d.submit(r)
+    eng_d.step()           # prefills + one decode
+    eng_d.step()
+    step_ms = 1e3 * _host_time(eng_d.step, 3)
+    prof = profile_forward(eng_d.step)
+    prof["step_ms"] = step_ms
+    prof["idle_share"] = (1 - prof["device_busy_ms"] / step_ms
+                          if prof["device_kernels"] else None)
+    res["profiled_decode_step"] = prof
+    print(f"profiled decode step (4 busy slots): {step_ms:.3f} ms host "
+          f"clock, {prof['device_kernels']} device kernels, busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']}, top {prof['top_kernels_ms']}")
+    res["engine"] = engine
+    return res
+
+
+def _host_time(fn, reps: int) -> float:
+    """Mean host-clock seconds of ``fn`` over ``reps`` calls that each end
+    in a device synchronisation, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_lm_times(dev, engine) -> dict:
+    """Kernel, plain, library and bound at the slice's own shapes: the 126
+    products of one decode step (M = max_batch rows of bf16), each with
+    its own layer's codes, and its 18 attention calls over the engine's
+    cache (bf16 q, fp32 cache, per-row offsets)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_traffic_bytes,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.log_conv2d import decode_codes
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.kernels.ref import (attention_mask, ref_attention,
+                                         ref_log_matmul)
+    from repro_torch.models.transformer import _rep
+    cfg, params = engine.cfg, engine.params
+    B = engine.ecfg.max_batch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    seg = params["segments"]["seg0"]
+    mats = []
+    for r in range(cfg.n_layers):
+        lp = _rep(seg, r)["l0"]
+        mats += [lp["attn"][n] for n in ("wq", "wk", "wv", "wo")]
+        mats += [lp["ffn"][n] for n in ("w1", "w3", "w2")]
+    out = {}
+    for M in (B, 16):
+        xs = {qt.packed.shape[0]: torch.randn(
+            (M, qt.packed.shape[0]), generator=gen, device=dev).to(
+            cfg.act_dtype) for qt in mats}
+        run = lambda fn: [fn(xs[qt.packed.shape[0]], qt) for qt in mats]  # noqa: E731
+        t = {"ms": time_ms(lambda: run(lambda x, qt: log_matmul_cuda(
+            x, qt.packed, qt.scale)), 5)}
+        nbytes = sum(qt.packed.numel() + 2 * M * qt.packed.shape[0]
+                     + 4 * qt.packed.shape[1] + 2 * M * qt.packed.shape[1]
+                     for qt in mats)
+        flops = sum(2 * M * qt.packed.numel() for qt in mats)
+        t.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
+                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3, gbytes=nbytes / 1e9)
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        if M == B:
+            t["plain_ms"] = time_ms(lambda: run(lambda x, qt: ref_log_matmul(
+                x, qt.packed, qt.scale)), 2)
+        w_lib = [(decode_codes(qt.packed) * qt.scale).to(cfg.act_dtype)
+                 for qt in mats]
+        t["library_ms"] = time_ms(lambda: [torch.matmul(
+            xs[w.shape[0]], w) for w in w_lib], 5)
+        del w_lib
+        torch.cuda.empty_cache()
+        t["blocks"] = sorted({(-(-qt.packed.shape[1] // 32))
+                              * (-(-M // (4 if M <= 4 else 8)))
+                              for qt in mats})
+        out[f"log_matmul M={M}"] = t
+        print(f"log_matmul x{len(mats)} (one forward) at M={M}: kernel "
+              f"{t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, plain "
+              f"{t.get('plain_ms', float('nan')):.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({t['gbytes']:.3f} GB at "
+              f"{t['gbytes'] / t['ms']:.3f} TB/s), blocks per launch "
+              f"{t['blocks']}")
+
+    # attention of one decode step over the engine's (filled) cache
+    caches = [_rep(engine.cache["segments"]["seg0"], r)["l0"]
+              for r in range(cfg.n_layers)]
+    S = caches[0]["k"].shape[1]
+    offs = torch.tensor([S - 1, S - 9, 20, 5], device=dev)[:B]
+    q = torch.randn((B, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(cfg.act_dtype)
+    mask = attention_mask(1, S, causal=True, window=None, q_offset=offs,
+                          k_offset=0, device=dev)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lib_kv = [(c["k"].transpose(1, 2).repeat_interleave(rep, 1),
+               c["v"].transpose(1, 2).repeat_interleave(rep, 1))
+              for c in caches]
+    qf = q.float().transpose(1, 2)
+    kw = dict(causal=True, q_offset=offs)
+    t = {"ms": time_ms(lambda: [flash_attention_cuda(q, c["k"], c["v"], **kw)
+                                for c in caches], 10),
+         "plain_ms": time_ms(lambda: [ref_attention(q, c["k"], c["v"], **kw)
+                                      for c in caches], 5),
+         "library_ms": time_ms(lambda: [F.scaled_dot_product_attention(
+             qf, k, v, attn_mask=mask[:, None]) for k, v in lib_kv], 10)}
+    pairs = int(mask.sum())
+    nbytes = cfg.n_layers * (2 * q.numel() * q.element_size()
+                             + 2 * caches[0]["k"].numel() * 4)
+    flops = cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * pairs
+    t.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
+             ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
+             kernel_traffic_bytes=cfg.n_layers * attention_traffic_bytes(
+                 "cuda", B, 1, S, cfg.n_heads, cfg.n_kv_heads,
+                 cfg.head_dim)["total"])
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    out["attention decode"] = t
+    print(f"attention x{cfg.n_layers} (one decode step, B={B}, Tk={S}, bf16 "
+          f"q, fp32 cache): kernel {t['ms']:.4f} ms, library "
+          f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms")
+
+    # attention at the long shapes of phase 8, one call each
+    for (b, tq, tk), dt in (((1, 2048, 2048), torch.bfloat16),
+                            ((4, 1, 8192), torch.float32)):
+        qq = torch.randn((b, tq, cfg.n_heads, cfg.head_dim), generator=gen,
+                         device=dev).to(dt)
+        kk, vv = (torch.randn((b, tk, 1, cfg.head_dim), generator=gen,
+                              device=dev).to(dt) for _ in range(2))
+        off = tk - tq
+        m = attention_mask(tq, tk, causal=True, window=None, q_offset=off,
+                           k_offset=0, device=dev)
+        kl, vl = (a.transpose(1, 2).expand(b, cfg.n_heads, tk, cfg.head_dim)
+                  for a in (kk, vv))
+        ql = qq.transpose(1, 2)
+        tt = {"ms": time_ms(lambda: flash_attention_cuda(
+                  qq, kk, vv, causal=True, q_offset=off), 5),
+              "plain_ms": time_ms(lambda: ref_attention(
+                  qq, kk, vv, causal=True, q_offset=off), 2),
+              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                  ql, kl, vl, attn_mask=m[:, None]), 5)}
+        nb = 2 * qq.numel() * qq.element_size() + 2 * kk.numel() \
+            * kk.element_size()
+        fl = 4 * b * cfg.n_heads * cfg.head_dim * int(m.sum())
+        tt["bound_ms"] = max(nb / PEAK_HBM_BYTES, fl / PEAK_FP32_FLOPS) * 1e3
+        out[f"attention B={b} Tq={tq} Tk={tk} {dt}"] = tt
+        print(f"attention B={b} Tq={tq} Tk={tk} {dt}: kernel "
+              f"{tt['ms']:.4f} ms, library {tt['library_ms']:.4f} ms, plain "
+              f"{tt['plain_ms']:.4f} ms, bound {tt['bound_ms']:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -444,33 +930,52 @@ def main() -> int:
     checks, max_err = phase_sweeps(dev)
     slice_rows, launches = phase_slice(dev)
     times, nets = phase_conv_times(dev)
+    mm_rows, mm_err = phase_log_matmul(dev)
+    at_rows, at_err = phase_attention(dev)
+    lm = phase_serving(dev)
+    lm_times = phase_lm_times(dev, lm.pop("engine"))
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
                      "ops_ms")}
-    kernel = {"name": "log_conv2d_fused", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/log_conv2d.cu",
-              "replaces": "src/repro/kernels/log_conv2d.py:491",
-              "launches": launches, "max_abs_err": max_err,
-              "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-              "bound_ms": tot["bound_ms"],
-              "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
-                           else "bytes"),
-              "library_ms": tot["library_ms"]}
+
+    def row(name, src, replaces, n, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
+                             else "bytes"),
+                "library_ms": t["library_ms"]}
+
+    kernels = [
+        row("log_conv2d_fused", "log_conv2d.cu",
+            "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot),
+        row("log_matmul_cuda", "log_matmul.cu",
+            "src/repro/kernels/log_matmul.py:95", lm["launches_log_matmul"],
+            mm_err, lm_times[f"log_matmul M={lm['args']['max_batch']}"]),
+        row("flash_attention_cuda", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:125",
+            lm["launches_attention"], at_err, lm_times["attention decode"])]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernel": kernel, "checks": checks,
+        {"card": card, "kernels": kernels, "checks": checks,
          "slice": slice_rows, "nets": nets,
-         "conv_times": {"/".join(k): v for k, v in times.items()}},
-        indent=1))
-    print(f"times are sums over one batch-{BATCH} forward of each of the "
-          f"four nets ({sum(CONVS_PER_NET.values())} convs)")
-    print(json.dumps({"kernels": [kernel]}))
+         "conv_times": {"/".join(k): v for k, v in times.items()},
+         "log_matmul_checks": mm_rows, "attention_checks": at_rows,
+         "lm_slice": lm, "lm_times": lm_times}, indent=1, default=str))
+    print(f"conv times are sums over one batch-{BATCH} forward of each of "
+          f"the four nets ({sum(CONVS_PER_NET.values())} convs); log_matmul "
+          f"and attention times are sums over one {LM_ARCH} decode step "
+          f"(126 and 18 calls)")
+    print(f"total wall time {time.perf_counter() - T_START:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -5,9 +5,13 @@ A port of the JAX package `repro`, held against it by the tests.  It
 imports neither `jax` nor `repro`.
 
 Subpackages:
+  configs   the LM architectures (`get_config`), as data
   core      log quantization and the packed-code container
-  kernels   the CUDA log-domain conv kernel, its plain versions, `ops`
-  models    the paper's four CNNs
-  serving   load-time packing of CNN weights
+  kernels   the CUDA kernels (log-domain conv, log-domain matmul, GQA
+            attention), their plain versions, `ops`
+  launch    `python -m repro_torch.launch.serve`, the LM serving CLI
+  models    the paper's four CNNs; the transformer (attention archs)
+  obs       span tracer and metrics registry
+  serving   load-time weight packing, the continuous-batching engine
 """
 __version__ = "0.1.0"

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = {"log_conv2d": CSRC / "log_conv2d.cu"}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("log_conv2d", "log_matmul", "flash_attention")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

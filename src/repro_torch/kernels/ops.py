@@ -1,30 +1,42 @@
-"""The kernel-call surface of the port (counterpart of `repro.kernels.ops`,
-conv slice).
+"""The kernel-call surface of the port (counterpart of `repro.kernels.ops`:
+`log_matmul`, `conv2d` and `attention`).
 
-`conv2d` takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
+Every op takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
 
-  "cuda"      — the hand-written CUDA kernel (`log_conv2d.log_conv2d_fused`);
-                on a CPU tensor its wrapper runs the plain blockwise version
-  "blockwise" — decode, then `F.conv2d`
-  "ref"       — explicit im2col × decode-then-matmul oracle (tests)
+  "cuda"      — the op's hand-written CUDA kernel (`log_matmul_cuda`,
+                `log_conv2d_fused`, `flash_attention_cuda`); on a CPU tensor
+                its wrapper runs the op's plain version
+  "blockwise" — plain PyTorch: decode then matmul, decode then `F.conv2d`,
+                online softmax over kv chunks
+  "ref"       — the full-materialisation oracles (tests)
   "auto"      — "cuda" for a CUDA tensor, "blockwise" for a CPU tensor
 
-and ``config=ConvConfig(lane_pack=...)`` for the grouped-conv layout.
+plus a per-op frozen config: ``ConvConfig(lane_pack=...)`` for the
+grouped-conv layout, ``AttentionConfig`` for the blockwise version's chunk
+and math knobs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        quantize_tensor)
+from .flash_attention import flash_attention_cuda
 from .log_conv2d import (lane_unpack_codes, log_conv2d_blockwise,
                          log_conv2d_fused, log_conv2d_ref)
+from .log_matmul import log_matmul_cuda
+from .ref import positions, ref_attention, ref_log_matmul
 
 _OP_IMPLS = {
+    "log_matmul": ("cuda", "blockwise", "ref"),
     "conv2d": ("cuda", "blockwise", "ref"),
+    "attention": ("cuda", "blockwise", "ref"),
 }
 
 
@@ -41,6 +53,33 @@ def resolve_impl(op: str, impl: str = "auto", device=None) -> str:
         raise ValueError(f"unknown {op} impl {impl!r}; expected "
                          f"{'|'.join(choices)}|auto")
     return impl
+
+
+# ---------------------------------------------------------------------------
+# log_matmul
+# ---------------------------------------------------------------------------
+
+
+def log_matmul(x, qt: QuantizedTensor, *, impl: str = "auto"):
+    """x: [..., K] @ dequant(qt [K, N]) → [..., N] in x's dtype."""
+    impl = resolve_impl("log_matmul", impl, x.device)
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    N = qt.packed.shape[-1]
+    scale = torch.as_tensor(qt.scale, dtype=torch.float32,
+                            device=x.device).reshape(1, -1).expand(1, N)
+    if impl == "cuda":
+        out = log_matmul_cuda(x2.contiguous(), qt.packed, scale, qt.cfg,
+                              out_dtype=x.dtype)
+    else:
+        # blockwise == ref for a matmul (as in the JAX package)
+        out = ref_log_matmul(x2, qt.packed, scale, qt.cfg, out_dtype=x.dtype)
+    return out.reshape(*lead, N)
+
+
+# ---------------------------------------------------------------------------
+# conv2d
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +114,9 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
     packed on the fly (inference only).  Supports stride,
     SAME/VALID/int/explicit padding and grouped/depthwise convs."""
     if impl == "pallas_im2col":
-        raise ValueError("conv2d impl 'pallas_im2col' runs on the log_matmul "
-                         "kernel, which the port does not have yet (ROADMAP.md "
-                         "queue A, item 11)")
+        raise ValueError("conv2d impl 'pallas_im2col' (explicit im2col onto "
+                         "the log_matmul kernel) is not ported (ROADMAP.md "
+                         "queue B, item 2)")
     if not isinstance(qt, QuantizedTensor):
         qt = quantize_tensor(torch.as_tensor(qt, device=x.device),
                              qcfg or LogQuantConfig())
@@ -104,3 +143,146 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
     else:
         y = log_conv2d_blockwise(x, packed, qt.scale, qt.cfg, **kw)
     return y if out_dtype is None else y.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    """Math spec for `attention`'s blockwise version.  The CUDA kernel's
+    tiles are fixed (`flash_attention.BLOCK_Q` / `BLOCK_K`)."""
+    block_k: int | None = None       # blockwise kv chunk (default 1024)
+    acc_dtype: Any = torch.float32   # blockwise score/accum math dtype
+    gqa_broadcast: bool = False      # blockwise: einsum-broadcast GQA
+
+
+def _blockwise_attention(q, k, v, *, causal, window, scale, q_offset,
+                         k_offset=0, block_k: int = 1024,
+                         acc_dtype=torch.float32, gqa_broadcast: bool = False):
+    """Online softmax over kv chunks of ``block_k`` keys.
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, Hkv, D]; offsets are ints or int
+    tensors ``[B]``.  `acc_dtype` runs the score/accumulator math in bf16
+    (running max and sum stay fp32); `gqa_broadcast` contracts a
+    ``[B, Tq, Hkv, rep, D]`` view of q against unexpanded K/V instead of
+    repeating K/V rep times."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = scale if scale is not None else 1.0 / D ** 0.5
+    f32, cdt, dev = torch.float32, acc_dtype, q.device
+
+    pk = (-Tk) % block_k
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    nkv = (Tk + pk) // block_k
+
+    use_bcast = gqa_broadcast and rep > 1
+    qf = q.to(cdt) * torch.tensor(scale, dtype=cdt, device=dev)
+    if use_bcast:
+        qf = qf.reshape(B, Tq, Hkv, rep, D)
+    qpos = positions(Tq, q_offset, dev)[:, :, None]          # [B|1, Tq, 1]
+    k_off = torch.as_tensor(k_offset, device=dev).reshape(-1, 1, 1)
+
+    m = torch.full((B, H, Tq, 1), -1e30, dtype=f32, device=dev)
+    l = torch.zeros((B, H, Tq, 1), dtype=f32, device=dev)
+    acc = torch.zeros((B, H, Tq, D), dtype=f32, device=dev)
+    neg = torch.tensor(-1e30, dtype=f32, device=dev)
+    for kv_idx in range(nkv):
+        kb = kp[:, kv_idx * block_k:(kv_idx + 1) * block_k]
+        vb = vp[:, kv_idx * block_k:(kv_idx + 1) * block_k]
+        if use_bcast:
+            s = torch.einsum("bqhrd,bkhd->bhrqk", qf, kb.to(cdt))
+            s = s.reshape(B, H, Tq, block_k)
+        else:
+            if rep > 1:
+                kb = kb.repeat_interleave(rep, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, kb.to(cdt))
+        s = s.to(f32)
+        kpos = (kv_idx * block_k + torch.arange(block_k, device=dev)
+                )[None, None, :] + k_off                      # [B|1, 1, bk]
+        mask = (kpos < Tk + k_off) & (kpos >= 0)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & ((qpos - kpos) < window)
+        mask = mask[:, None]                                  # head axis
+        s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), torch.zeros((), device=dev))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        if use_bcast:
+            pv = torch.einsum("bhrqk,bkhd->bqhrd",
+                              p.reshape(B, Hkv, rep, Tq, block_k).to(cdt),
+                              vb.to(cdt))
+            pv = pv.reshape(B, Tq, H, D).permute(0, 2, 1, 3)
+        else:
+            if rep > 1:
+                vb = vb.repeat_interleave(rep, dim=2)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(cdt), vb.to(cdt))
+        acc = alpha * acc + pv.to(f32)
+        m = m_new
+    out = acc / torch.where(l > 0, l, torch.ones((), device=dev))
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+_UNSET = object()  # legacy-kwarg sentinel: distinguishes "not passed"
+
+
+def _translate_legacy_attn_kwargs(config, legacy: dict):
+    """Deprecation shim: `block_k=`/`acc_dtype=`/`gqa_broadcast=` become
+    `AttentionConfig` fields."""
+    passed = {n: v for n, v in legacy.items() if v is not _UNSET}
+    if not passed:
+        return config or AttentionConfig()
+    warnings.warn(
+        f"ops.attention({', '.join(sorted(passed))}=…) is deprecated; pass "
+        f"config=AttentionConfig(...) instead (legacy kwargs are removed "
+        f"next release)", DeprecationWarning, stacklevel=3)
+    if config is not None:
+        raise ValueError("pass either config=AttentionConfig(...) or the "
+                         f"legacy kwargs {sorted(passed)}, not both")
+    return AttentionConfig(**passed)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              scale=None, q_offset=0, k_offset=0, impl: str = "auto",
+              config: AttentionConfig | None = None, block_k=_UNSET,
+              acc_dtype=_UNSET, gqa_broadcast=_UNSET):
+    """GQA/MQA attention.  q: [B, Tq, H, D]; k, v: [B, Tk, Hkv, D] with H a
+    multiple of Hkv.
+
+    `q_offset` / `k_offset` are the absolute positions of q[:, 0] and
+    k[:, 0] (decode at a cache index, ring caches): each an int, or an int
+    tensor ``[B]`` with one per batch row, on every impl.  An int gives the
+    JAX package's semantics exactly.  ``block_k=`` / ``acc_dtype=`` /
+    ``gqa_broadcast=`` are deprecated aliases of the `AttentionConfig`
+    fields."""
+    config = _translate_legacy_attn_kwargs(
+        config, dict(block_k=block_k, acc_dtype=acc_dtype,
+                     gqa_broadcast=gqa_broadcast))
+    B, Tq, H, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"inconsistent attention operands: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if Hkv == 0 or H % Hkv != 0:
+        raise ValueError(
+            f"GQA requires query heads divisible by kv heads; got H={H} "
+            f"query heads vs Hkv={Hkv} kv heads (q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)})")
+    impl = resolve_impl("attention", impl, q.device)
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+              k_offset=k_offset)
+    if impl == "ref":
+        return ref_attention(q, k, v, **kw)
+    if impl == "blockwise":
+        return _blockwise_attention(
+            q, k, v, **kw, block_k=config.block_k or 1024,
+            acc_dtype=config.acc_dtype, gqa_broadcast=config.gqa_broadcast)
+    return flash_attention_cuda(q, k, v, **kw)

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the kernels of this package.
 
-Counterpart of `repro.kernels.ref`; this slice carries `ref_log_matmul`
-only (the attention and RWKV oracles come with their kernels).
+Counterpart of `repro.kernels.ref`: `ref_log_matmul` (kernel B2's plain
+version) and `ref_attention` (kernel B3's).  The RWKV oracle comes with
+its kernel.
 """
 
 from __future__ import annotations
@@ -18,3 +19,55 @@ def ref_log_matmul(x, packed, scale, cfg: LogQuantConfig = LogQuantConfig(),
     w = log_dequantize(packed, scale, cfg, dtype=torch.float32)
     out = torch.matmul(x.to(torch.float32), w)
     return out.to(out_dtype or x.dtype)
+
+
+def positions(n: int, offset, device) -> torch.Tensor:
+    """Absolute positions ``arange(n) + offset`` as ``[1, n]`` for an int
+    offset, or ``[B, n]`` for an int tensor of per-row offsets ``[B]``."""
+    off = torch.as_tensor(offset, device=device).reshape(-1, 1)
+    return torch.arange(n, device=device)[None] + off
+
+
+def attention_mask(Tq: int, Tk: int, *, causal: bool, window, q_offset,
+                   k_offset, device) -> torch.Tensor:
+    """Boolean ``[B or 1, Tq, Tk]``: keys at absolute position < 0 (ring
+    slots never written) are masked, then causal and window masks."""
+    qpos = positions(Tq, q_offset, device)[:, :, None]
+    kpos = positions(Tk, k_offset, device)[:, None, :]
+    mask = kpos >= 0
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & ((qpos - kpos) < window)
+    return mask
+
+
+def ref_attention(q, k, v, *, causal=True, window=None, scale=None,
+                  q_offset=0, k_offset=0):
+    """q: [B, Tq, H, D]; k, v: [B, Tk, Hkv, D] (GQA: H multiple of Hkv).
+
+    window: sliding-window size (keys with q_pos - k_pos >= window masked).
+    q_offset: absolute position of q[0] (for decode: q_offset = Tk - Tq).
+    k_offset: absolute position of k[0] (ring-buffer caches; keys with
+    absolute position < 0 are masked as never-written slots).  Each offset
+    is an int, or an int tensor ``[B]`` with one offset per batch row.
+    A fully masked row gets uniform weights, as the JAX oracle's softmax
+    gives it.
+    """
+    B, Tq, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = scale if scale is not None else 1.0 / D ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    mask = attention_mask(Tq, k.shape[1], causal=causal, window=window,
+                          q_offset=q_offset, k_offset=k_offset,
+                          device=q.device)
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)

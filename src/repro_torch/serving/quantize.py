@@ -1,9 +1,11 @@
-"""Serving-time weight packing for the CNNs (counterpart of the CNN half of
-`repro.serving.quantize`).
+"""Serving-time weight packing (counterpart of `repro.serving.quantize`).
 
-`quantize_cnn_params` packs a CNN's 4-D conv kernels into 6-bit(+sign)
-base-√2 `QuantizedTensor`s once at load, so every conv dispatches straight
-onto `kernels/ops.conv2d` with no per-call packing.
+`quantize_params` packs a transformer's matmul kernels, and
+`quantize_cnn_params` a CNN's 4-D conv kernels, into 6-bit(+sign) base-√2
+`QuantizedTensor`s once at load, so every dense layer dispatches straight
+onto `kernels/ops.log_matmul` and every conv onto `kernels/ops.conv2d` with
+no per-call packing.  The codes and scales equal the JAX package's byte for
+byte.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
+                                       _scale_for, log_quantize,
                                        quantize_tensor)
 from repro_torch.kernels.log_conv2d import lane_pack_codes, lane_pack_geometry
 
@@ -23,6 +26,35 @@ def _map_tree(fn, tree, name=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tree(fn, v, name) for v in tree)
     return fn(name, tree)
+
+
+# matmul kernels eligible for packed serving weights (2D [in, out] layout, or
+# stacked [n_rep, in, out]); embeddings stay fp — gathers don't go through
+# log_matmul
+QUANT_LEAVES = frozenset(
+    {"wq", "wk", "wv", "wo", "w1", "w2", "w3",
+     "ck", "cv", "cr", "wg", "wr"})
+
+
+def quantize_params(params, qcfg: LogQuantConfig = LogQuantConfig()):
+    """Pack every eligible kernel of a `models/transformer.py` parameter
+    tree.  A stacked ``[n_rep, K, N]`` leaf keeps its stack and gets one
+    scale per (rep, channel): the layer loop slices codes and scales along
+    axis 0, and each slice is quantized on the grid of its own ``[K, N]``."""
+
+    def leaf(name, x):
+        if name not in QUANT_LEAVES or not isinstance(x, torch.Tensor) \
+                or x.ndim < 2:
+            return x
+        if x.ndim >= 3:
+            axis = tuple(range(1, x.ndim - 1)) if qcfg.per_channel \
+                else tuple(range(1, x.ndim))
+            packed, scale = log_quantize(x, qcfg,
+                                         scale=_scale_for(x, qcfg, axis))
+            return QuantizedTensor(packed, scale, qcfg, x.shape)
+        return quantize_tensor(x, qcfg)
+
+    return _map_tree(leaf, params)
 
 
 def quantize_cnn_params(params, qcfg: LogQuantConfig = LogQuantConfig(),
