@@ -47,8 +47,11 @@ goes wrong:
      and attention call is held against its plain version on the same
      input; a second engine on blockwise attention and the plain matmul
      gives the greedy-token agreement and the prefill logit difference
-     (tolerance 0.1 * (max|l| + 1)); prefill ms per bucket, decode-step ms,
-     tokens/s and one profiled decode step are printed;
+     (tolerance 0.02 * (max|l| + 1)); with random weights each request
+     mostly repeats one token, so the greedy agreement is printed but
+     proves little: the per-call checks carry correctness.  Prefill ms
+     per bucket, decode-step ms, tokens/s and one profiled decode step are
+     printed;
  10. per-kernel times at the slice's shapes: log_matmul over one decode
      step's 126 products and attention over its 18 calls, with the plain
      version, the library call (`torch.matmul` on pre-decoded weights;
@@ -730,7 +733,7 @@ def phase_serving(dev) -> dict:
     l_kern = steady._prefill(0, prompt).float()
     torch.cuda.synchronize()
     diff = float((l_kern - l_plain).abs().max())
-    tol = 0.1 * (float(l_plain.abs().max()) + 1)
+    tol = 0.02 * (float(l_plain.abs().max()) + 1)
     prefix = [next((i for i, (a, b) in enumerate(zip(outputs[u], plain[u]))
                     if a != b), len(plain[u])) for u in plain]
     res["vs_plain"] = {
@@ -739,6 +742,8 @@ def phase_serving(dev) -> dict:
         "same_top1": int(l_kern.argmax()) == int(l_plain.argmax()),
         "requests_identical": sum(p == args.max_new for p in prefix),
         "agreeing_prefix_tokens": prefix,
+        "requests_of_one_token": sum(len(set(o)) == 1
+                                     for o in outputs.values()),
         "token_agreement": float(np.mean([outputs[u][i] == plain[u][i]
                                           for u in plain
                                           for i in range(args.max_new)]))}
@@ -778,6 +783,19 @@ def _host_time(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps
+
+
+def _attention_work(q, k, mask) -> tuple[int, int]:
+    """(bytes, FLOP) one attention call needs on this data: q read and the
+    output written once; K and V read once for each key that some query of
+    the batch row attends (the kernel skips fully masked tiles); 4·D FLOP
+    per query head for each unmasked (query, key) pair."""
+    B, _, H, D = q.shape
+    m = mask.expand(B, *mask.shape[1:])
+    keys = int(m.any(dim=1).sum())
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * keys * k.shape[2] * D * k.element_size()
+    return nbytes, 4 * H * D * int(m.sum())
 
 
 def phase_lm_times(dev, engine) -> dict:
@@ -858,10 +876,8 @@ def phase_lm_times(dev, engine) -> dict:
                                       for c in caches], 5),
          "library_ms": time_ms(lambda: [F.scaled_dot_product_attention(
              qf, k, v, attn_mask=mask[:, None]) for k, v in lib_kv], 10)}
-    pairs = int(mask.sum())
-    nbytes = cfg.n_layers * (2 * q.numel() * q.element_size()
-                             + 2 * caches[0]["k"].numel() * 4)
-    flops = cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * pairs
+    nbytes, flops = (cfg.n_layers * n
+                     for n in _attention_work(q, caches[0]["k"], mask))
     t.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
              ops_ms=flops / PEAK_FP32_FLOPS * 1e3,
              kernel_traffic_bytes=cfg.n_layers * attention_traffic_bytes(
@@ -893,9 +909,7 @@ def phase_lm_times(dev, engine) -> dict:
                   qq, kk, vv, causal=True, q_offset=off), 2),
               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                   ql, kl, vl, attn_mask=m[:, None]), 5)}
-        nb = 2 * qq.numel() * qq.element_size() + 2 * kk.numel() \
-            * kk.element_size()
-        fl = 4 * b * cfg.n_heads * cfg.head_dim * int(m.sum())
+        nb, fl = _attention_work(qq, kk, m)
         tt["bound_ms"] = max(nb / PEAK_HBM_BYTES, fl / PEAK_FP32_FLOPS) * 1e3
         out[f"attention B={b} Tq={tq} Tk={tk} {dt}"] = tt
         print(f"attention B={b} Tq={tq} Tk={tk} {dt}: kernel "

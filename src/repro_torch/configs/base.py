@@ -56,8 +56,9 @@ class ModelConfig:
     # paper technique: None | "logq6" (base-√2 6-bit log-quantized weights)
     quant: str | None = None
     # attention dispatch (`kernels/ops.attention`): cuda | blockwise | ref |
-    # auto; the blockwise version's kv chunk and math knobs
-    attn_impl: str = "blockwise"
+    # auto ("cuda" on the card, "blockwise" on the CPU, as `log_matmul`
+    # resolves); the blockwise version's kv chunk and math knobs
+    attn_impl: str = "auto"
     attn_block_k: int = 1024
     gqa_broadcast: bool = False      # einsum-broadcast GQA (no kv repeat)
     attn_acc_dtype: Any = torch.float32  # blockwise attention math dtype

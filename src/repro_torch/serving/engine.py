@@ -64,10 +64,11 @@ class EngineConfig:
     max_len: int = 256                 # cache capacity (prompt + generation)
     eos_id: int = -1                   # -1: never stop on a token
     cache_dtype: Any = torch.float32
-    # the attention dispatch for serving: "auto" (the CUDA kernel for a
-    # model on the card, blockwise on the CPU), any `ops.attention` impl,
-    # or None to keep the model config's attn_impl
-    attn_impl: str | None = "auto"
+    # the attention dispatch for serving, resolved once against the
+    # params' device and written into the engine's model config: "auto"
+    # (the CUDA kernel on the card, blockwise on the CPU) or any
+    # `ops.attention` impl
+    attn_impl: str = "auto"
     # "auto": timeline/histogram/span work follows the trace gate
     # (REPRO_TRACE); "on"/"off" force it.  `stats` is always kept.
     telemetry: str = "auto"
@@ -99,10 +100,9 @@ class ServeEngine:
             raise ValueError(f"telemetry must be auto|on|off, got "
                              f"{ecfg.telemetry!r}")
         self.device = params["embed"]["table"].device
-        if ecfg.attn_impl is not None:
-            cfg = dataclasses.replace(
-                cfg, attn_impl=resolve_impl("attention", ecfg.attn_impl,
-                                            self.device))
+        cfg = dataclasses.replace(
+            cfg, attn_impl=resolve_impl("attention", ecfg.attn_impl,
+                                        self.device))
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
         B, L = ecfg.max_batch, ecfg.max_len
         self.cache = transformer.init_cache(cfg, B, L, ecfg.cache_dtype,

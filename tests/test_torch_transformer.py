@@ -28,6 +28,7 @@ from repro.serving import quantize as jq  # noqa: E402
 from repro_torch.configs.registry import REGISTRY as TREGISTRY  # noqa: E402
 from repro_torch.configs.registry import get_config as tget  # noqa: E402
 from repro_torch.core.logquant import QuantizedTensor  # noqa: E402
+from repro_torch.kernels.ops import resolve_impl  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serving import quantize as tq  # noqa: E402
@@ -58,21 +59,34 @@ def _params(arch, seed=0):
 
 def test_configs_match_jax():
     """Every arch is ported as data: the same names and the same values in
-    every field the port keeps, full size and reduced."""
+    every field the port keeps, full size and reduced.  The attention
+    dispatch defaults to "auto", which follows the tensors' device and so
+    resolves to JAX's default, "blockwise", on the CPU."""
     assert list(TREGISTRY) == list(JREGISTRY)
     for name, tc in TREGISTRY.items():
         for jc, rc in ((JREGISTRY[name], tc),
                        (JREGISTRY[name].reduced(), tc.reduced())):
             for f in dataclasses.fields(rc):
-                jv = getattr(jc, f.name)
-                assert DTYPES.get(jv, jv) == getattr(rc, f.name), \
-                    (name, f.name)
+                jv, tv = getattr(jc, f.name), getattr(rc, f.name)
+                if f.name == "attn_impl":
+                    assert tv == "auto", name
+                    tv = resolve_impl("attention", tv, "cpu")
+                assert DTYPES.get(jv, jv) == tv, (name, f.name)
             assert (rc.segments, rc.q_dim, rc.kv_dim, rc.param_count()) == \
                 (jc.segments, jc.q_dim, jc.kv_dim, jc.param_count())
     assert tget("gemma-2b").act_dtype is torch.bfloat16
     assert tget("gemma-2b").reduced().act_dtype is torch.float32
     with pytest.raises(KeyError, match="unknown arch"):
         tget("nope")
+
+
+def test_default_dispatch_follows_device():
+    """With a config's defaults, a forward on the card reaches both CUDA
+    kernels and a forward on the CPU their plain versions."""
+    cfg = tget("gemma-2b")
+    for dev, want in (("cuda", "cuda"), ("cpu", "blockwise")):
+        assert resolve_impl("attention", cfg.attn_impl, dev) == want
+        assert resolve_impl("log_matmul", "auto", dev) == want
 
 
 def test_norms_match_jax():
