@@ -56,7 +56,33 @@ goes wrong:
      step's 126 products and attention over its 18 calls, with the plain
      version, the library call (`torch.matmul` on pre-decoded weights;
      `F.scaled_dot_product_attention` with the kv head expanded) and the
-     bound.
+     bound;
+ 11. the wkv6 kernel against `ref_wkv6` (and `wkv6_chunked` where its
+     closed form is finite), for o and the final state: the shapes of
+     `tests/test_kernels_wkv6.py` (K != V included), rwkv6-1.6b's decode
+     (B=4, T=1, H=32, K=V=64, carried state), prefill (T in {3, 15}) and a
+     T=2048 call, fp32 and bf16 r/k/v (tolerance 1e-4 and 8e-3 times
+     (max|y| + 1)), two halves against the whole, and a strong decay
+     (logw = -7, the clip's floor), where the kernel must be finite; it
+     prints whether the chunked plain version gave NaN there;
+ 12. the RWKV slice: rwkv6-1.6b at full width served as in 9.  log_matmul
+     must launch 192 times and wkv6 24 times per forward; every log_matmul
+     and wkv6 call of one prefill and one decode step is held against its
+     plain version; a plain engine (decode-then-matmul, sequential WKV)
+     gives the prefill logit difference and the greedy agreement.  With
+     random weights the RWKV stack amplifies a single bf16 rounding to
+     O(1) logit differences, so that difference is printed for bf16 and
+     held in fp32 activations (tolerance 0.02 * (max|l| + 1)).  Prefill
+     ms per prompt length (exact length: a pad token would enter the
+     state), decode-step ms, tokens/s and one profiled decode step are
+     printed;
+ 13. wkv6 times: kernel, plain versions (`ref_wkv6`, `wkv6_chunked`) and
+     the byte bound, summed over one decode step's 24 calls, over a
+     15-token prefill's 24 calls, and for one T=2048 call.  No single
+     PyTorch call computes the recurrence, so there is no library time.
+
+Phases 5, 9 and 12 drive the main paths: the kernels' launch counts are set
+to 0 just before each and read just after.
 
 Details go to `chiprun_out/chip_smoke.json`.  The last three lines are the
 kernel table as JSON, the card's name and power limit, and
@@ -65,6 +91,7 @@ kernel table as JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import subprocess
@@ -86,6 +113,7 @@ BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
                  "squeezenet": 26}
 LM_ARCH = "gemma-2b"
+RWKV_ARCH = "rwkv6-1.6b"
 GEMMA_KN = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)]
 MM_SHAPES = ([(128, 128, 128), (256, 384, 128), (64, 128, 256),
               (130, 257, 129), (8, 512, 64),      # test_kernels_log_matmul
@@ -561,19 +589,36 @@ def phase_attention(dev) -> tuple[list, float]:
     return rows, max_err
 
 
-def _serve_args():
+def _serve_args(arch: str):
     from repro_torch.launch import serve
     # launch/serve.py's defaults, on the card, with the engine's telemetry
     # (host-clock histograms) on
-    return serve.parse_args(["--arch", LM_ARCH, "--device", "cuda",
+    return serve.parse_args(["--arch", arch, "--device", "cuda",
                              "--telemetry", "on"])
 
 
-def _checked_ops(ratios: dict):
-    """Stand-ins for `ops.log_matmul` / `ops.attention` that also run the
-    plain version on the same input and record err/tol."""
+# per arch: the kernel ops one layer calls per forward, and how many plain
+# versions each per-call check holds a call against
+PER_LAYER = {LM_ARCH: {"log_matmul": 7, "attention": 1},
+             RWKV_ARCH: {"log_matmul": 8, "wkv6": 1}}
+PLAIN_CHECKS = {"log_matmul": 1, "attention": 2, "wkv6": 1}
+
+
+def _wrappers() -> dict:
+    """The kernel wrapper of each op, whose ``launches`` count the kernel's
+    launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    return {"log_matmul": log_matmul_cuda, "attention": flash_attention_cuda,
+            "wkv6": wkv6_cuda}
+
+
+def _checked_ops(ratios: dict) -> dict:
+    """Stand-ins for `ops.log_matmul` / `ops.attention` / `ops.wkv6` that
+    also run the plain versions on the same input and record err/tol."""
     from repro_torch.kernels import ops
-    lm, at = ops.log_matmul, ops.attention
+    lm, at, wk = ops.log_matmul, ops.attention, ops.wkv6
 
     def log_matmul(x, qt, **kw):
         y = lm(x, qt, **kw)
@@ -590,13 +635,26 @@ def _checked_ops(ratios: dict):
             ratios["attention"].append(err / tol)
         return y
 
-    return log_matmul, attention
+    def wkv6(r, k, v, logw, u, state=None, **kw):
+        o, s = wk(r, k, v, logw, u, state, **kw)
+        o_r, s_r = wk(r, k, v, logw, u, state, impl="ref")
+        rel = 1e-4 if o.dtype == torch.float32 else 8e-3
+        err_o, tol_o = _err_tol(o, o_r, rel)
+        err_s, tol_s = _err_tol(s, s_r, rel)
+        ratios["wkv6"].append(max(err_o / tol_o, err_s / tol_s))
+        return o, s
+
+    return {"log_matmul": log_matmul, "attention": attention, "wkv6": wkv6}
 
 
-def _plain_matmul():
+def _plain_ops() -> dict:
+    """`ops` entries that run the plain versions: decode-then-matmul and
+    the sequential WKV oracle (attention is made plain by the engine's
+    ``attn_impl``)."""
     from repro_torch.kernels import ops
-    lm = ops.log_matmul
-    return lambda x, qt, **kw: lm(x, qt, impl="blockwise")
+    lm, wk = ops.log_matmul, ops.wkv6
+    return {"log_matmul": lambda x, qt, **kw: lm(x, qt, impl="blockwise"),
+            "wkv6": lambda *a, **kw: wk(*a, **dict(kw, impl="ref"))}
 
 
 class _patched:
@@ -618,12 +676,58 @@ class _patched:
         return False
 
 
-def phase_serving(dev) -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.log_matmul import log_matmul_cuda
+def _vs_plain(engine, args, act_dtype=None) -> dict:
+    """A kernel engine and an engine on the plain versions (blockwise
+    attention, decode-then-matmul, the sequential WKV), on the engine's
+    weights and in ``act_dtype`` (default: the config's): the prefill
+    logits of the first request's prompt and the greedy tokens of the
+    whole request set."""
     from repro_torch.launch import serve
     from repro_torch.serving.engine import EngineConfig, ServeEngine
-    args = _serve_args()
+    cfg = engine.cfg if act_dtype is None else dataclasses.replace(
+        engine.cfg, act_dtype=act_dtype)
+    sizes = dict(max_batch=args.max_batch, max_prompt=args.max_prompt,
+                 max_len=args.max_len)
+    prompt = serve.make_requests(args, cfg.vocab)[0].prompt
+    outs, logits = {}, {}
+    for name, ecfg, ops_ in (
+            ("kernel", EngineConfig(**sizes), {}),
+            ("plain", EngineConfig(**sizes, attn_impl="blockwise"),
+             _plain_ops())):
+        eng = ServeEngine(cfg, engine.params, ecfg)
+        with _patched(**ops_):
+            for r in serve.make_requests(args, cfg.vocab):
+                eng.submit(r)
+            outs[name] = {r.uid: r.output for r in eng.run()}
+            logits[name] = eng._prefill(0, prompt).float()
+    torch.cuda.synchronize()
+    kern, plain = outs["kernel"], outs["plain"]
+    prefix = [next((i for i, (a, b) in enumerate(zip(kern[u], plain[u]))
+                    if a != b), len(plain[u])) for u in plain]
+    return {
+        "prefill_logit_diff": float((logits["kernel"]
+                                     - logits["plain"]).abs().max()),
+        "max_abs_logit": float(logits["plain"].abs().max()),
+        "same_top1": int(logits["kernel"].argmax())
+        == int(logits["plain"].argmax()),
+        "requests_identical": sum(p == args.max_new for p in prefix),
+        "agreeing_prefix_tokens": prefix,
+        "requests_of_one_token": sum(len(set(o)) == 1
+                                     for o in kern.values()),
+        "token_agreement": float(np.mean([kern[u][i] == plain[u][i]
+                                          for u in plain
+                                          for i in range(args.max_new)]))}
+
+
+def phase_serving(dev, arch: str) -> dict:
+    """One arch of the LM slice served end to end by the port's engine:
+    the main path with its launch counts, a steady run, prefill times,
+    per-call checks, a plain engine and a profiled decode step."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    args = _serve_args(arch)
+    per_layer, wrappers = PER_LAYER[arch], _wrappers()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = serve.build_engine(args)
     torch.cuda.synchronize()
@@ -640,24 +744,24 @@ def phase_serving(dev) -> dict:
 
     # the main path: the counts are zeroed just before it and read just after
     reqs = serve.make_requests(args, cfg.vocab)
-    log_matmul_cuda.launches = 0
-    flash_attention_cuda.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    lm, fa = log_matmul_cuda.launches, flash_attention_cuda.launches
+    launches = {op: w.launches for op, w in wrappers.items()}
     st = engine.stats
     fwd = st["prefill_calls"] + st["decode_steps"]
-    res.update(launches_log_matmul=lm, launches_attention=fa, stats=st,
+    want = {op: per_layer.get(op, 0) * n_layers * fwd for op in wrappers}
+    res.update(launches=launches, expected_launches=want, stats=st,
                first_run_s=wall)
-    print(f"main path: {len(done)} requests, {st}; log_matmul launches {lm} "
-          f"(expected {7 * n_layers} x {fwd} = {7 * n_layers * fwd}), "
-          f"attention launches {fa} (expected {n_layers} x {fwd} = "
-          f"{n_layers * fwd}); {wall:.3f} s cold")
-    if lm != 7 * n_layers * fwd or fa != n_layers * fwd:
+    print(f"main path: {len(done)} requests, {st} ({fwd} forwards of "
+          f"{n_layers} layers); kernel launches {launches}, expected "
+          f"{want}; {wall:.3f} s cold")
+    if launches != want:
         fail("kernel launch counts on the main path do not match the "
              "engine's forwards")
     if len(done) != args.requests or any(
@@ -694,64 +798,53 @@ def phase_serving(dev) -> dict:
           f"{res['prefill_ms_mean']:.3f} ms; outputs repeat the first run: "
           f"{res['repeat_identical']}")
 
-    # prefill per bucket (prompts of 3..15 tokens pad to 4, 8 or 16)
+    # prefill per prompt length (attention-only archs pad to 4, 8 or 16
+    # tokens; recurrent ones run the exact length)
     res["prefill_ms"] = {}
     for T in (3, 8, 15):
         prompt = np.arange(1, T + 1)
         ms = 1e3 * _host_time(lambda: steady._prefill(0, prompt), 5)
-        res["prefill_ms"][f"T={T} bucket {1 << (T - 1).bit_length()}"] = ms
-    print(f"prefill ms per bucket: {res['prefill_ms']}")
+        label = (f"T={T} bucket {1 << (T - 1).bit_length()}"
+                 if steady._pad_prefill else f"T={T}")
+        res["prefill_ms"][label] = ms
+    print(f"prefill ms per prompt length: {res['prefill_ms']}")
 
     # one prefill and one decode step with every call held against plain
-    ratios = {"log_matmul": [], "attention": []}
+    ratios = {op: [] for op in per_layer}
     eng_c = ServeEngine(cfg, engine.params, engine.ecfg)
     eng_c.submit(serve.make_requests(args, cfg.vocab)[0])
-    lm_c, at_c = _checked_ops(ratios)
-    with _patched(log_matmul=lm_c, attention=at_c):
+    checked = _checked_ops(ratios)
+    with _patched(**{op: checked[op] for op in per_layer}):
         eng_c.step()
         torch.cuda.synchronize()
-    res["per_call"] = {k: {"calls": len(v), "worst_err_over_tol": max(v)}
+    res["per_call"] = {k: {"calls": len(v) // PLAIN_CHECKS[k],
+                           "worst_err_over_tol": max(v)}
                        for k, v in ratios.items()}
     print(f"per-call check over one prefill and one decode step: "
           f"{res['per_call']}")
-    if len(ratios["log_matmul"]) != 2 * 7 * n_layers \
-            or len(ratios["attention"]) != 2 * 2 * n_layers \
+    if any(len(ratios[op]) != 2 * n * n_layers * PLAIN_CHECKS[op]
+           for op, n in per_layer.items()) \
             or max(max(v) for v in ratios.values()) > 1.0:
-        fail("a log_matmul or attention call of the slice disagrees with "
-             "its plain version (or was not seen)")
+        fail("a kernel call of the slice disagrees with its plain version "
+             "(or was not seen)")
 
-    # a second engine on the plain versions, the same weights
-    eng_p = ServeEngine(cfg, engine.params, EngineConfig(
-        max_batch=args.max_batch, max_prompt=args.max_prompt,
-        max_len=args.max_len, attn_impl="blockwise"))
-    with _patched(log_matmul=_plain_matmul()):
-        for r in serve.make_requests(args, cfg.vocab):
-            eng_p.submit(r)
-        plain = {r.uid: r.output for r in eng_p.run()}
-        prompt = reqs[0].prompt
-        l_plain = eng_p._prefill(0, prompt).float()
-    l_kern = steady._prefill(0, prompt).float()
-    torch.cuda.synchronize()
-    diff = float((l_kern - l_plain).abs().max())
-    tol = 0.02 * (float(l_plain.abs().max()) + 1)
-    prefix = [next((i for i, (a, b) in enumerate(zip(outputs[u], plain[u]))
-                    if a != b), len(plain[u])) for u in plain]
-    res["vs_plain"] = {
-        "prefill_logit_diff": diff, "tol": tol,
-        "max_abs_logit": float(l_plain.abs().max()),
-        "same_top1": int(l_kern.argmax()) == int(l_plain.argmax()),
-        "requests_identical": sum(p == args.max_new for p in prefix),
-        "agreeing_prefix_tokens": prefix,
-        "requests_of_one_token": sum(len(set(o)) == 1
-                                     for o in outputs.values()),
-        "token_agreement": float(np.mean([outputs[u][i] == plain[u][i]
-                                          for u in plain
-                                          for i in range(args.max_new)]))}
-    print(f"vs plain engine (blockwise attention, decode-then-matmul): "
-          f"{res['vs_plain']}")
-    if diff > tol:
-        fail(f"prefill logits differ from the plain engine's by {diff:.3e}"
-             f" > tol {tol:.3e}")
+    # the kernel engine against an engine on the plain versions, on the
+    # same weights, within 0.02 * (max|l| + 1).  Random-weight RWKV
+    # amplifies one bf16 rounding of a WKV output (about 0.3 % after the
+    # group norm) to O(1) logit differences over its 24 layers, so two
+    # correct bf16 versions differ by about half of max|l| there: its limit
+    # is held in fp32 activations, and the bf16 difference is printed.
+    res["vs_plain"] = _vs_plain(engine, args)
+    print(f"vs plain engine (blockwise attention, decode-then-matmul, "
+          f"sequential WKV), {cfg.act_dtype}: {res['vs_plain']}")
+    held = res["vs_plain"]
+    if arch == RWKV_ARCH:
+        held = res["vs_plain_fp32"] = _vs_plain(engine, args, torch.float32)
+        print(f"vs plain engine, fp32 activations: {held}")
+    held["tol"] = tol = 0.02 * (held["max_abs_logit"] + 1)
+    if held["prefill_logit_diff"] > tol:
+        fail(f"prefill logits differ from the plain engine's by "
+             f"{held['prefill_logit_diff']:.3e} > tol {tol:.3e}")
 
     # one profiled decode step with all slots busy
     eng_d = ServeEngine(cfg, engine.params, engine.ecfg)
@@ -765,9 +858,9 @@ def phase_serving(dev) -> dict:
     prof["idle_share"] = (1 - prof["device_busy_ms"] / step_ms
                           if prof["device_kernels"] else None)
     res["profiled_decode_step"] = prof
-    print(f"profiled decode step (4 busy slots): {step_ms:.3f} ms host "
-          f"clock, {prof['device_kernels']} device kernels, busy "
-          f"{prof['device_busy_ms']:.3f} ms, idle share "
+    print(f"profiled decode step ({args.max_batch} busy slots): "
+          f"{step_ms:.3f} ms host clock, {prof['device_kernels']} device "
+          f"kernels, busy {prof['device_busy_ms']:.3f} ms, idle share "
           f"{prof['idle_share']}, top {prof['top_kernels_ms']}")
     res["engine"] = engine
     return res
@@ -918,6 +1011,154 @@ def phase_lm_times(dev, engine) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the RWKV slice: wkv6 (B4)
+# ---------------------------------------------------------------------------
+
+
+def _wkv_inputs(gen, dev, b, t, h, kd, vd, dtype=torch.float32, logw=None,
+                state=True):
+    """r, k, v (in ``dtype``), logw and u (fp32) as
+    `tests/test_kernels_wkv6.py` draws them (log decay in about
+    [-2, -0.02] unless ``logw`` fixes it), and a random fp32 state."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k = randn(b, t, h, kd) * 0.5, randn(b, t, h, kd) * 0.5
+    v = randn(b, t, h, vd) * 0.5
+    lw = -torch.exp(randn(b, t, h, kd) * 0.5 - 1.5)
+    if logw is not None:
+        lw = torch.full_like(lw, logw)
+    u = randn(h, kd) * 0.3
+    s0 = randn(b, h, kd, vd) * 0.5 if state else None
+    return [a.to(dtype) for a in (r, k, v)] + [lw, u, s0]
+
+
+def phase_wkv6(dev) -> tuple[list, float]:
+    """The wkv6 kernel against `ref_wkv6` (and `wkv6_chunked` where its
+    closed form is finite), for o and S_T: the shapes of
+    `tests/test_kernels_wkv6.py`, rwkv6-1.6b's decode, prefill and a long
+    call, fp32 and bf16 r/k/v, a carried state and a strong decay."""
+    from repro_torch.kernels.ref import ref_wkv6
+    from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_cuda
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    H, hs = 32, 64                               # rwkv6-1.6b's heads
+    cases = [((1, 64, 2, 32, 32), {}), ((2, 96, 2, 16, 32), {}),
+             ((1, 33, 1, 8, 8), {}),             # test_kernels_wkv6 shapes
+             ((2, 96, 2, 16, 32), dict(state=False)),
+             ((4, 1, H, hs, hs), {}),            # decode, 4 slots
+             ((1, 3, H, hs, hs), dict(state=False)),   # prefill
+             ((1, 15, H, hs, hs), dict(state=False)),
+             ((1, 2048, H, hs, hs), {}),         # a long call
+             ((1, 64, H, hs, hs), dict(logw=-7.0))]    # the clip's floor
+    rows, max_err = [], 0.0
+    for (b, t, h, kd, vd), kw in cases:
+        for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
+            r, k, v, lw, u, s0 = _wkv_inputs(gen, dev, b, t, h, kd, vd,
+                                             dtype, **kw)
+            o, s = wkv6_cuda(r, k, v, lw, u, s0)
+            o_r, s_r = ref_wkv6(r, k, v, lw, u, s0)
+            o_c, s_c = wkv6_chunked(r, k, v, lw, u, s0,
+                                    chunk=min(64, max(16, t)))
+            torch.cuda.synchronize()
+            label = (f"wkv6 B={b} T={t} H={h} K={kd} V={vd} {dtype} "
+                     f"{kw or ''}")
+            if o.shape != o_r.shape or o.dtype != dtype \
+                    or s.dtype != torch.float32 \
+                    or not bool(torch.isfinite(o).all()) \
+                    or not bool(torch.isfinite(s).all()):
+                fail(f"{label}: shape, dtype or non-finite output")
+            row = {"case": label}
+            chunked_finite = bool(torch.isfinite(o_c.float()).all())
+            row["chunked_finite"] = chunked_finite
+            plains = {"ref": (o_r, s_r)}
+            if chunked_finite:
+                plains["chunked"] = (o_c, s_c)
+            for name, (po, ps) in plains.items():
+                for part, got, want in (("o", o, po), ("S", s, ps)):
+                    err, tol = _err_tol(got, want, rel)
+                    row[f"{part}_vs_{name}"] = err
+                    row[f"{part}_tol"] = tol
+                    if err > tol:
+                        fail(f"{label}: |kernel {part} - {name}| {err:.3e} "
+                             f"> tol {tol:.3e}")
+                    max_err = max(max_err, err)
+            rows.append(row)
+            if "logw" in kw and dtype == torch.float32:
+                print(f"strong decay logw={kw['logw']}: kernel finite, "
+                      f"|o - ref| {row['o_vs_ref']:.3e}; the chunked plain "
+                      f"version gave NaN: {not chunked_finite}")
+
+    # state carry: two halves on the kernel equal the whole
+    r, k, v, lw, u, s0 = _wkv_inputs(gen, dev, 1, 64, H, hs, hs)
+    o_w, s_w = wkv6_cuda(r, k, v, lw, u, s0)
+    o1, s1 = wkv6_cuda(*(a[:, :40].contiguous() for a in (r, k, v, lw)), u,
+                       s0)
+    o2, s2 = wkv6_cuda(*(a[:, 40:].contiguous() for a in (r, k, v, lw)), u,
+                       s1)
+    torch.cuda.synchronize()
+    err_o, tol_o = _err_tol(torch.cat([o1, o2], 1), o_w, 1e-4)
+    err_s, tol_s = _err_tol(s2, s_w, 1e-4)
+    rows.append({"case": "state carry 40 + 24 vs 64", "o_vs_whole": err_o,
+                 "S_vs_whole": err_s, "o_tol": tol_o, "S_tol": tol_s})
+    if err_o > tol_o or err_s > tol_s:
+        fail(f"wkv6 state carry: |halves - whole| {err_o:.3e} / {err_s:.3e}")
+    worst = max(max(v_ / r_[f"{p}_tol"] for p in ("o", "S")
+                    for k_, v_ in r_.items() if k_.startswith(f"{p}_vs"))
+                for r_ in rows)
+    print(f"wkv6: {len(rows)} cases within tol (fp32 and bf16, o and S_T), "
+          f"max |kernel - plain| {max_err:.3e}, worst err/tol {worst:.3e}")
+    return rows, max_err
+
+
+def phase_wkv6_times(dev, engine) -> dict:
+    """Kernel, plain (`ref_wkv6`, `wkv6_chunked`) and bound for the wkv6
+    calls of the RWKV slice: the 24 calls of one decode step (4 slots,
+    bf16 r/k/v, fp32 logw, each layer's own u and state from the engine's
+    cache), the 24 calls of a 15-token prefill and one T = 2048 call."""
+    from repro_torch.kernels.ref import ref_wkv6
+    from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_cuda, wkv6_work
+    from repro_torch.models.transformer import _rep
+    cfg, params = engine.cfg, engine.params
+    H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    layers = [(_rep(params["segments"]["seg0"], r)["l0"]["rwkv"]["u"],
+               _rep(engine.cache["segments"]["seg0"], r)["l0"]["wkv"])
+              for r in range(cfg.n_layers)]
+    out = {}
+    for label, (b, t), reps in (("decode step", (engine.ecfg.max_batch, 1),
+                                 10),
+                                ("prefill T=15", (1, 15), 5),
+                                ("T=2048", (1, 2048), 3)):
+        calls = layers if t < 2048 else layers[:1]
+        ins = []
+        for u, s in calls:  # the engine passes a state at prefill too
+            r, k, v, lw, _, _ = _wkv_inputs(gen, dev, b, t, H, hs, hs,
+                                            cfg.act_dtype, state=False)
+            ins.append((r, k, v, lw, u, s[:b]))
+        chunk = min(64, max(16, t))
+        tt = {"calls": len(ins),
+              "ms": time_ms(lambda: [wkv6_cuda(*a) for a in ins], reps),
+              "plain_ms": time_ms(lambda: [ref_wkv6(*a) for a in ins],
+                                  1 if t == 2048 else 2),
+              "chunked_plain_ms": time_ms(lambda: [wkv6_chunked(
+                  *a, chunk=chunk) for a in ins], 2),
+              "library_ms": None}
+        nbytes = flops = 0
+        for r, _, v, lw, _, _ in ins:
+            nb, fl = wkv6_work(r, v, lw)
+            nbytes, flops = nbytes + nb, flops + fl
+        tt.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
+                  ops_ms=flops / PEAK_FP32_FLOPS * 1e3, mbytes=nbytes / 1e6)
+        tt["bound_ms"] = max(tt["bytes_ms"], tt["ops_ms"])
+        out[f"wkv6 {label}"] = tt
+        print(f"wkv6 x{len(ins)} ({label}, B={b}, T={t}, H={H}, K=V={hs}, "
+              f"{cfg.act_dtype} r/k/v): kernel {tt['ms']:.4f} ms, plain "
+              f"{tt['plain_ms']:.4f} ms (chunked {tt['chunked_plain_ms']:.4f}"
+              f" ms), bound {tt['bound_ms']:.5f} ms ({tt['mbytes']:.2f} MB); "
+              f"no single PyTorch call computes the recurrence")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -946,8 +1187,11 @@ def main() -> int:
     times, nets = phase_conv_times(dev)
     mm_rows, mm_err = phase_log_matmul(dev)
     at_rows, at_err = phase_attention(dev)
-    lm = phase_serving(dev)
+    lm = phase_serving(dev, LM_ARCH)
     lm_times = phase_lm_times(dev, lm.pop("engine"))
+    wk_rows, wk_err = phase_wkv6(dev)
+    rw = phase_serving(dev, RWKV_ARCH)
+    wk_times = phase_wkv6_times(dev, rw.pop("engine"))
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
@@ -967,11 +1211,14 @@ def main() -> int:
         row("log_conv2d_fused", "log_conv2d.cu",
             "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot),
         row("log_matmul_cuda", "log_matmul.cu",
-            "src/repro/kernels/log_matmul.py:95", lm["launches_log_matmul"],
+            "src/repro/kernels/log_matmul.py:95",
+            lm["launches"]["log_matmul"] + rw["launches"]["log_matmul"],
             mm_err, lm_times[f"log_matmul M={lm['args']['max_batch']}"]),
         row("flash_attention_cuda", "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:125",
-            lm["launches_attention"], at_err, lm_times["attention decode"])]
+            lm["launches"]["attention"], at_err, lm_times["attention decode"]),
+        row("wkv6_cuda", "wkv6.cu", "src/repro/kernels/wkv6.py:102",
+            rw["launches"]["wkv6"], wk_err, wk_times["wkv6 decode step"])]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -979,11 +1226,15 @@ def main() -> int:
          "slice": slice_rows, "nets": nets,
          "conv_times": {"/".join(k): v for k, v in times.items()},
          "log_matmul_checks": mm_rows, "attention_checks": at_rows,
-         "lm_slice": lm, "lm_times": lm_times}, indent=1, default=str))
+         "lm_slice": lm, "lm_times": lm_times, "wkv6_checks": wk_rows,
+         "rwkv_slice": rw, "wkv6_times": wk_times}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs); log_matmul "
           f"and attention times are sums over one {LM_ARCH} decode step "
-          f"(126 and 18 calls)")
+          f"(126 and 18 calls), wkv6 times over one {RWKV_ARCH} decode step "
+          f"(24 calls); log_matmul launches are those of both LM main "
+          f"paths ({lm['launches']['log_matmul']} + "
+          f"{rw['launches']['log_matmul']})")
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

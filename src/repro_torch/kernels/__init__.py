@@ -7,9 +7,15 @@ log_matmul       matmul against packed log codes: the CUDA kernel
                  (`csrc/log_matmul.cu`, wrapper `log_matmul_cuda`)
 flash_attention  GQA online-softmax attention: the CUDA kernel
                  (`csrc/flash_attention.cu`, wrapper `flash_attention_cuda`)
-ref              the oracles `ref_log_matmul` and `ref_attention`
+wkv6             the RWKV6 recurrence: the CUDA kernel (`csrc/wkv6.cu`,
+                 wrapper `wkv6_cuda`) and the chunked plain `wkv6_chunked`
+ref              the oracles `ref_log_matmul`, `ref_attention`, `ref_wkv6`
 ops              the dispatch layer: ``impl="cuda|blockwise|ref|auto"``
 """
 from . import ops, ref
-# `ops.log_matmul` is not re-exported: the name is the kernel's module
-from .ops import AttentionConfig, ConvConfig, attention, conv2d, resolve_impl
+# `ops.log_matmul` is not re-exported: the name is the kernel's module.
+# `ops.wkv6` is, as in the JAX package: after this line the package
+# attribute `wkv6` is the op, and the kernel's module is reached with
+# ``from repro_torch.kernels.wkv6 import ...``
+from .ops import (AttentionConfig, ConvConfig, WkvConfig, attention, conv2d,
+                  resolve_impl, wkv6)

@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("log_conv2d", "log_matmul", "flash_attention")}
+           for name in ("log_conv2d", "log_matmul", "flash_attention",
+                        "wkv6")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,19 +1,19 @@
 """The kernel-call surface of the port (counterpart of `repro.kernels.ops`:
-`log_matmul`, `conv2d` and `attention`).
+`log_matmul`, `conv2d`, `attention` and `wkv6`).
 
 Every op takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
 
   "cuda"      — the op's hand-written CUDA kernel (`log_matmul_cuda`,
-                `log_conv2d_fused`, `flash_attention_cuda`); on a CPU tensor
-                its wrapper runs the op's plain version
+                `log_conv2d_fused`, `flash_attention_cuda`, `wkv6_cuda`);
+                on a CPU tensor its wrapper runs the op's plain version
   "blockwise" — plain PyTorch: decode then matmul, decode then `F.conv2d`,
-                online softmax over kv chunks
+                online softmax over kv chunks, the chunked WKV closed form
   "ref"       — the full-materialisation oracles (tests)
   "auto"      — "cuda" for a CUDA tensor, "blockwise" for a CPU tensor
 
 plus a per-op frozen config: ``ConvConfig(lane_pack=...)`` for the
 grouped-conv layout, ``AttentionConfig`` for the blockwise version's chunk
-and math knobs.
+and math knobs, ``WkvConfig(chunk=...)`` for the chunked WKV.
 """
 
 from __future__ import annotations
@@ -31,12 +31,14 @@ from .flash_attention import flash_attention_cuda
 from .log_conv2d import (lane_unpack_codes, log_conv2d_blockwise,
                          log_conv2d_fused, log_conv2d_ref)
 from .log_matmul import log_matmul_cuda
-from .ref import positions, ref_attention, ref_log_matmul
+from .ref import positions, ref_attention, ref_log_matmul, ref_wkv6
+from .wkv6 import wkv6_chunked, wkv6_cuda
 
 _OP_IMPLS = {
     "log_matmul": ("cuda", "blockwise", "ref"),
     "conv2d": ("cuda", "blockwise", "ref"),
     "attention": ("cuda", "blockwise", "ref"),
+    "wkv6": ("cuda", "blockwise", "ref"),
 }
 
 
@@ -286,3 +288,36 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
             q, k, v, **kw, block_k=config.block_k or 1024,
             acc_dtype=config.acc_dtype, gqa_broadcast=config.gqa_broadcast)
     return flash_attention_cuda(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
+# wkv6
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WkvConfig:
+    """Chunking spec for `wkv6`'s blockwise version (the chunk length
+    bounds the exp dynamic range of the closed form; see `kernels/wkv6.py`).
+    The CUDA kernel runs token by token and reads no chunk."""
+    chunk: int = 64
+
+
+def wkv6(r, k, v, logw, u, state=None, *, impl: str = "auto",
+         config: WkvConfig | None = None, chunk: int | None = None):
+    """RWKV6 WKV.  r, k, logw: [B, T, H, K]; v: [B, T, H, V]; u: [H, K];
+    state: [B, H, K, V] or None → (o [B, T, H, V], S_T [B, H, K, V] fp32).
+
+    ``config=WkvConfig(chunk=…)`` is the spec'd surface; ``chunk=`` stays
+    as an alias that beats it.  "cuda" and "blockwise" return o in r's
+    dtype, "ref" in fp32 (as the JAX oracle does)."""
+    impl = resolve_impl("wkv6", impl, r.device)
+    chunk = chunk if chunk is not None else (config or WkvConfig()).chunk
+    if impl == "ref":
+        return ref_wkv6(r, k, v, logw, u, state)
+    if impl == "blockwise":
+        return wkv6_chunked(r, k, v, logw, u, state, chunk=chunk)
+    return wkv6_cuda(*(t.contiguous() for t in (r, k, v, logw)),
+                     u.to(torch.float32).contiguous(),
+                     None if state is None
+                     else state.to(torch.float32).contiguous())

@@ -1,8 +1,7 @@
 """Plain PyTorch oracles for the kernels of this package.
 
 Counterpart of `repro.kernels.ref`: `ref_log_matmul` (kernel B2's plain
-version) and `ref_attention` (kernel B3's).  The RWKV oracle comes with
-its kernel.
+version), `ref_attention` (kernel B3's) and `ref_wkv6` (kernel B4's).
 """
 
 from __future__ import annotations
@@ -71,3 +70,30 @@ def ref_attention(q, k, v, *, causal=True, window=None, scale=None,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def ref_wkv6(r, k, v, logw, u, state=None):
+    """Sequential RWKV6 (Finch) WKV recurrence with data-dependent decay:
+    the spec, one token at a time in fp32.
+
+    r, k, logw: [B, T, H, K]; v: [B, T, H, V]; u: [H, K] (the bonus of the
+    current token); state: [B, H, K, V] or None (zeros).
+
+        o_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
+        S_t = diag(exp(logw_t)) S_{t-1} + k_t v_tᵀ
+
+    Returns (o [B, T, H, V], S_T [B, H, K, V]), both fp32 as in the JAX
+    oracle."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    r, k, v, logw = (a.to(f32) for a in (r, k, v, logw))
+    u = u.to(f32)[None, :, :, None]
+    S = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # [B, H, K, V]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + u * kv))
+        S = torch.exp(logw[:, t])[..., None] * S + kv
+    return torch.stack(outs, 1), S

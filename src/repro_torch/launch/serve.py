@@ -2,13 +2,17 @@
 on packed log-code weights.
 
     python -m repro_torch.launch.serve --arch gemma-2b          # on the card
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b        # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --reduced --device cpu
 
 Counterpart of `repro.launch.serve` (the mesh flags wait for ROADMAP.md
 queue A, item 17).  The weights are random, from ``--seed``, and are packed
 by `serving.quantize.quantize_params` before the engine is built, so on the
-card every dense layer runs on the log_matmul kernel and every attention
-call on the attention kernel.
+card every dense layer runs on the log_matmul kernel, every attention call
+on the attention kernel and every RWKV layer's recurrence on the wkv6
+kernel.
 """
 
 from __future__ import annotations

@@ -8,11 +8,15 @@ this one leaf by leaf (`params_from_numpy`).  Where JAX scans, `forward`
 loops over the reps in Python and slices the stacked tensors; a slice of a
 contiguous stack is a contiguous view, so no weight is copied.
 
-Cache: ``{"index": int or int tensor [B], "segments": {seg: stacked
-per-layer state}}``; the attention layers write it in place.
+Layer kinds: attention ("attn", "local": mixer then FFN) and RWKV6
+("rwkv": time-mix then channel-mix, no FFN).
 
-Not in this slice: RWKV and RG-LRU layers and MoE FFNs (ROADMAP.md queue
-A, item 13), frontend-stub archs fed with embeddings and the training loss
+Cache: ``{"index": int or int tensor [B], "segments": {seg: stacked
+per-layer state}}``; the layers write it in place (attention: K/V at the
+index; RWKV: ``x_prev_t``, ``x_prev_c`` and the WKV state).
+
+Not ported yet: RG-LRU layers and MoE FFNs (ROADMAP.md queue A, item 13),
+frontend-stub archs fed with embeddings and the training loss
 (`chunked_xent`, `lm_loss`: item 14).
 """
 
@@ -26,11 +30,13 @@ from .attention import attention_mixer, attn_init, init_kv_cache
 from .cnn import params_from_numpy, resolve_device  # noqa: F401
 from .layers import (embed, embed_init, ffn, ffn_init, norm, norm_init,
                      unembed)
+from .rwkv import (rwkv_channel_mix, rwkv_init, rwkv_state_init,
+                   rwkv_time_mix)
 
 
 def check_supported(cfg) -> None:
     """Raise for what this slice of the port does not run."""
-    kinds = set(cfg.layer_pattern) - {"attn", "local"}
+    kinds = set(cfg.layer_pattern) - {"attn", "local", "rwkv"}
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: {sorted(kinds)} layers are not ported yet "
@@ -50,11 +56,14 @@ def check_supported(cfg) -> None:
 
 
 def layer_init(gen, cfg, kind: str, *, lead=(), device=None):
-    """One attention layer (``kind`` "attn" or "local"), every leaf
-    prefixed by ``lead``."""
+    """One layer (``kind`` "attn", "local" or "rwkv"), every leaf prefixed
+    by ``lead``."""
     kw = dict(lead=lead, device=device)
-    return {"norm1": norm_init(cfg, **kw), "norm2": norm_init(cfg, **kw),
-            "attn": attn_init(gen, cfg, **kw), "ffn": ffn_init(gen, cfg, **kw)}
+    norms = {"norm1": norm_init(cfg, **kw), "norm2": norm_init(cfg, **kw)}
+    if kind == "rwkv":
+        return {**norms, "rwkv": rwkv_init(gen, cfg, **kw)}
+    return {**norms, "attn": attn_init(gen, cfg, **kw),
+            "ffn": ffn_init(gen, cfg, **kw)}
 
 
 def unit_init(gen, cfg, unit, *, lead=(), device=None):
@@ -83,12 +92,21 @@ def init_params(cfg, seed: int = 0, *, device=None):
 # ---------------------------------------------------------------------------
 
 
+def layer_cache(cfg, kind, batch, max_len, dtype, *, lead=(), device=None):
+    """One layer's cache: K/V for attention (in ``dtype``), the fp32
+    recurrent state for RWKV (whatever ``dtype`` and ``max_len``)."""
+    if kind == "rwkv":
+        return rwkv_state_init(cfg, batch, lead=lead, device=device)
+    return init_kv_cache(cfg, kind, batch, max_len, dtype, lead=lead,
+                         device=device)
+
+
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device=None):
     check_supported(cfg)
     device = resolve_device(device)
-    segs = {f"seg{si}": {f"l{i}": init_kv_cache(cfg, kind, batch, max_len,
-                                                 dtype, lead=(n_rep,),
-                                                 device=device)
+    segs = {f"seg{si}": {f"l{i}": layer_cache(cfg, kind, batch, max_len,
+                                              dtype, lead=(n_rep,),
+                                              device=device)
                          for i, kind in enumerate(unit)}
             for si, (unit, n_rep) in enumerate(cfg.segments)}
     return {"index": 0, "segments": segs}
@@ -112,6 +130,13 @@ def _rep(tree, r: int):
 
 def _apply_layer(lp, h, cfg, kind, positions, lcache, index):
     """One pre-norm residual layer → (h, cache)."""
+    if kind == "rwkv":
+        o, lcache = rwkv_time_mix(lp["rwkv"], norm(cfg, lp["norm1"], h), cfg,
+                                  lcache)
+        h = h + o
+        o, lcache = rwkv_channel_mix(lp["rwkv"], norm(cfg, lp["norm2"], h),
+                                     cfg, lcache)
+        return h + o, lcache
     o, lcache = attention_mixer(lp["attn"], norm(cfg, lp["norm1"], h), cfg,
                                 kind=kind, positions=positions, cache=lcache,
                                 index=index)

@@ -1,17 +1,21 @@
 """Batched serving engine: continuous-batching prefill + decode.
 
-Counterpart of `repro.serving.engine` for the attention-only archs:
+Counterpart of `repro.serving.engine` for the attention-only and RWKV
+archs:
 
   · a fixed engine batch of `max_batch` slots, each slot = one sequence;
-  · **prefill** runs one slot at a time at its own prompt length, right-
-    padded to a power-of-two bucket (pad keys land at positions past the
-    prompt and are causally masked, then overwritten during decode, so they
-    are never visible).  The slot's part of the cache is zeroed in place
-    first;
+  · **prefill** runs one slot at a time at its own prompt length.  For
+    attention-only archs it is right-padded to a power-of-two bucket (pad
+    keys land at positions past the prompt and are causally masked, then
+    overwritten during decode, so they are never visible); archs with
+    recurrent layers prefill at the exact length, since a pad token would
+    enter the recurrent state.  The slot's part of the cache is zeroed in
+    place first;
   · **decode** is one batched forward for all slots: where the JAX engine
     vmaps over slots, each batch row here carries its own position, in the
     RoPE, in the cache write (a scatter at ``slot_pos[b]``) and in the
-    attention offsets, so ragged batches need no padding;
+    attention offsets, so ragged batches need no padding (RWKV layers read
+    no position: each row carries its own state);
   · finished slots are refilled from the FIFO queue between decode steps;
   · sampling is greedy at temperature 0; above it a `torch.Generator`
     seeded with ``seed + len(output)`` draws the token (its stream differs
@@ -77,6 +81,10 @@ class EngineConfig:
 _NULL_CTX = contextlib.nullcontext()
 
 
+def _has_recurrence(cfg) -> bool:
+    return any(k in ("rwkv", "rec") for k in cfg.layer_pattern)
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -107,6 +115,7 @@ class ServeEngine:
         B, L = ecfg.max_batch, ecfg.max_len
         self.cache = transformer.init_cache(cfg, B, L, ecfg.cache_dtype,
                                             device=self.device)
+        self._pad_prefill = not _has_recurrence(cfg)
         # per-slot host state
         self.slot_req: list[Request | None] = [None] * B
         self.slot_pos = np.zeros(B, np.int64)      # next write position
@@ -172,10 +181,12 @@ class ServeEngine:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def _prefill(self, slot: int, prompt) -> torch.Tensor:
-        """Zero the slot's cache, run the bucket-padded prompt through it
-        → the logits [V] of the last real token."""
+        """Zero the slot's cache, run the prompt (bucket-padded unless the
+        arch is recurrent) through it → the logits [V] of the last real
+        token."""
         T = len(prompt)
-        Tpad = min(_next_pow2(T), self.ecfg.max_prompt)
+        Tpad = min(_next_pow2(T), self.ecfg.max_prompt) \
+            if self._pad_prefill else T
         toks = torch.zeros((1, Tpad), dtype=torch.long)
         toks[0, :T] = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
         sub = _map(lambda c: c[:, slot:slot + 1].zero_(),

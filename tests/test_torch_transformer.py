@@ -252,7 +252,7 @@ def test_ring_prefill_longer_than_the_window(T):
     _close(got, want, rel=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
                                   "granite-moe-1b-a400m", "musicgen-large"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
     cfg = tget(arch).reduced()
