@@ -25,13 +25,15 @@ goes wrong:
      ``"blockwise"`` forward's.  Each net's forward is timed and profiled
      (device busy time, idle share, top kernels);
   6. per-conv times at batch 8: kernel, plain version (im2col x matmul),
-     the library call (decode + `F.conv2d`, and `F.conv2d` alone) and the
-     fp32 bound;
+     the library call (`F.conv2d` on weights decoded in advance, the same
+     yardstick as the LM kernels'), decode + `F.conv2d` and the fp32 bound;
   7. the log_matmul kernel against `ref_log_matmul`: the decode table bit
      for bit through a 1 x 128 product, the shapes of
-     `tests/test_kernels_log_matmul.py`, ragged shapes, and M in {1, 4, 32}
-     at every (K, N) of gemma-2b's dense layers, in fp32 (tolerance
-     1e-4 * (max|y| + 1)) and bf16 (8e-3 * (max|y| + 1));
+     `tests/test_kernels_log_matmul.py`, ragged shapes, K on either side
+     of a share boundary of the split-K geometry, and M in {1, 4, 32} at
+     every (K, N) of gemma-2b's and rwkv6-1.6b's dense layers, in fp32
+     (tolerance 1e-4 * (max|y| + 1)) and bf16 (8e-3 * (max|y| + 1)); every
+     case is run twice and must give the same bits;
   8. the attention kernel against `ref_attention` and the blockwise
      version: the sweeps of `tests/test_kernels_attention.py` (Hkv in
      {1, 2, 8} x window x ragged T), per-row decode offsets, the ring
@@ -53,10 +55,14 @@ goes wrong:
      per bucket, decode-step ms, tokens/s and one profiled decode step are
      printed;
  10. per-kernel times at the slice's shapes: log_matmul over one decode
-     step's 126 products and attention over its 18 calls, with the plain
-     version, the library call (`torch.matmul` on pre-decoded weights;
+     step's 126 products (M = 4) and over the same products at M = 16,
+     and attention over its 18 calls, with the plain version, the library
+     call (`torch.matmul` on pre-decoded weights;
      `F.scaled_dot_product_attention` with the kv head expanded) and the
-     bound;
+     bound.  log_matmul and its library call are read as device time, the
+     sum of their kernels in a `torch.profiler` window, beside the
+     CUDA-event time of the loop of calls and the wrapper's host time a
+     call;
  11. the wkv6 kernel against `ref_wkv6` (and `wkv6_chunked` where its
      closed form is finite), for o and the final state: the shapes of
      `tests/test_kernels_wkv6.py` (K != V included), rwkv6-1.6b's decode
@@ -80,11 +86,15 @@ goes wrong:
      the byte bound, summed over one decode step's 24 calls, over a
      15-token prefill's 24 calls, and for one T=2048 call.  No single
      PyTorch call computes the recurrence, so there is no library time.
+     Then log_matmul over rwkv6-1.6b's 192 products at M = 4 and 16, read
+     as in 10.
 
 Phases 5, 9 and 12 drive the main paths: the kernels' launch counts are set
 to 0 just before each and read just after.
 
-Details go to `chiprun_out/chip_smoke.json`.  The last three lines are the
+The build log must show the log_matmul kernels at no more than 128
+registers a thread and no spill.  Details go to
+`chiprun_out/chip_smoke.json`.  The last three lines are the
 kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -115,10 +125,15 @@ CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
 LM_ARCH = "gemma-2b"
 RWKV_ARCH = "rwkv6-1.6b"
 GEMMA_KN = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)]
+RWKV_KN = [(2048, 7168), (7168, 2048)]    # and (2048, 2048), as gemma-2b's
 MM_SHAPES = ([(128, 128, 128), (256, 384, 128), (64, 128, 256),
               (130, 257, 129), (8, 512, 64),      # test_kernels_log_matmul
-              (3, 1000, 77), (33, 4097, 300), (5, 31, 16)]   # ragged
-             + [(m, k, n) for m in (1, 4, 32) for k, n in GEMMA_KN])
+              (3, 1000, 77), (33, 4097, 300), (5, 31, 16),   # ragged
+              # K on either side of a share boundary (128 rows at M = 4),
+              # K = 1, and a share of one row
+              (4, 127, 2048), (4, 129, 2048), (4, 1, 2048), (8, 2049, 256)]
+             + [(m, k, n) for m in (1, 4, 32)
+                for k, n in GEMMA_KN + RWKV_KN])
 
 SHAPES = [  # B, H, W, C, K, P, stride, padding, groups (tests/test_conv2d.py)
     (2, 8, 8, 5, 3, 7, 1, "SAME", 1),
@@ -168,26 +183,52 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def profile_forward(fn) -> dict:
-    """Device time of one call of ``fn`` from a `torch.profiler` trace: the
-    sum of its CUDA kernels' durations, the kernel count and the kernels
-    that take the most time."""
+def device_kernels(fn, reps: int = 1,
+                   opener: bool = False) -> list[tuple[str, float]]:
+    """(name, ms) of each CUDA kernel of ``reps`` calls of ``fn``, from a
+    `torch.profiler` trace taken after one warm-up call.  With ``opener``
+    the window opens with a throwaway fill kernel (named ``FillFunctor``),
+    since the profiler may drop an event at its edge."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        if opener:
+            torch.ones(1, device="cuda")
+            torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def profile_forward(fn) -> dict:
+    """Device time of one call of ``fn`` from a `torch.profiler` trace: the
+    sum of its CUDA kernels' durations, the kernel count and the kernels
+    that take the most time."""
+    kernels = device_kernels(fn)
     by_name: dict[str, float] = {}
-    for e in kernels:
-        name = e.name[:60]
-        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, ms in kernels:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"device_busy_ms": sum(by_name.values()),
             "device_kernels": len(kernels), "top_kernels_ms": top}
+
+
+def check_registers(log: str, limit: int) -> None:
+    """Fail unless every kernel in a ``-Xptxas -v`` log uses at most
+    ``limit`` registers a thread and spills nothing."""
+    import re
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+    if not regs or max(regs) > limit or any(spills):
+        fail(f"ptxas: registers {regs} (limit {limit}), spill bytes "
+             f"{spills}")
+    print(f"  {len(regs)} kernels at {min(regs)}-{max(regs)} registers a "
+          f"thread (limit {limit}), no spill")
 
 
 def conv_cost(r: dict) -> tuple[int, int]:
@@ -446,11 +487,11 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             w = decode_codes(hwio) * qt.scale.reshape(-1)
             t = {"ms": time_ms(lambda: log_conv2d_fused(
                      x, codes, qt.scale, lane=lane, **kw), 5),
-                 "library_ms": time_ms(lambda: log_conv2d_blockwise(
+                 "decode_conv_ms": time_ms(lambda: log_conv2d_blockwise(
                      x, hwio, qt.scale, **kw), 5),
                  "plain_ms": time_ms(lambda: log_conv2d_ref(
                      x, hwio, qt.scale, **kw), 2),
-                 "conv_only_ms": time_ms(lambda: conv_nhwc(
+                 "library_ms": time_ms(lambda: conv_nhwc(
                      x, w, stride=r["stride"], pads=pads,
                      groups=r["groups"]), 5),
                  "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
@@ -459,8 +500,9 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
             times[sig(r)] = t
             print(f"conv {'/'.join(sig(r))} ({','.join(r['nets'])}): kernel "
-                  f"{t['ms']:.4f} ms, library {t['library_ms']:.4f} ms "
-                  f"(conv alone {t['conv_only_ms']:.4f}), plain "
+                  f"{t['ms']:.4f} ms, library (F.conv2d on decoded weights) "
+                  f"{t['library_ms']:.4f} ms, decode + conv "
+                  f"{t['decode_conv_ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
             del x, qt, hwio, codes, w
             torch.cuda.empty_cache()
@@ -469,14 +511,15 @@ def phase_conv_times(dev) -> tuple[dict, list]:
         recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
                                  n_classes=N_CLASSES)
         tot = {k: sum(times[sig(r)][k] for r in recs)
-               for k in ("ms", "library_ms", "plain_ms", "conv_only_ms",
+               for k in ("ms", "library_ms", "plain_ms", "decode_conv_ms",
                          "bound_ms",
                          "bytes_ms", "ops_ms", "gflop")}
         tot["net"], tot["convs"] = name, len(recs)
         nets.append(tot)
         print(f"convs {name:12s} x{len(recs)} at batch {BATCH}: kernel "
-              f"{tot['ms']:.3f} ms, library {tot['library_ms']:.3f} ms "
-              f"(conv alone {tot['conv_only_ms']:.3f} ms), "
+              f"{tot['ms']:.3f} ms, library (F.conv2d on decoded weights) "
+              f"{tot['library_ms']:.3f} ms, decode + conv "
+              f"{tot['decode_conv_ms']:.3f} ms, "
               f"plain {tot['plain_ms']:.3f} ms, fp32 bound "
               f"{tot['bound_ms']:.3f} ms ({tot['gflop']:.1f} GFLOP, "
               f"{tot['gflop'] / tot['ms']:.2f} TFLOP/s)")
@@ -496,8 +539,10 @@ def _err_tol(y, want, rel: float) -> tuple[float, float]:
 def phase_log_matmul(dev) -> tuple[list, float]:
     from repro_torch.core.logquant import quantize_tensor
     from repro_torch.kernels.log_conv2d import decode_codes
-    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.kernels.log_matmul import (log_matmul_cuda,
+                                                log_matmul_geometry)
     from repro_torch.kernels.ref import ref_log_matmul
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     codes = torch.arange(128, dtype=torch.int8, device=dev).reshape(1, 128)
     y = log_matmul_cuda(torch.ones((1, 1), device=dev), codes,
                         torch.ones(128, device=dev))
@@ -516,6 +561,7 @@ def phase_log_matmul(dev) -> tuple[list, float]:
         for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
             xd = x.to(dtype)
             got = log_matmul_cuda(xd, qt.packed, qt.scale)
+            again = log_matmul_cuda(xd, qt.packed, qt.scale)
             want = ref_log_matmul(xd, qt.packed, qt.scale)
             torch.cuda.synchronize()
             err, tol = _err_tol(got, want, rel)
@@ -523,12 +569,18 @@ def phase_log_matmul(dev) -> tuple[list, float]:
                     or not bool(torch.isfinite(got).all()):
                 fail(f"log_matmul {m}x{k}x{n} {dtype}: |kernel - ref| "
                      f"{err:.3e} > tol {tol:.3e} (or shape/dtype/finite)")
+            if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+                fail(f"log_matmul {m}x{k}x{n} {dtype}: two calls on the same "
+                     f"inputs gave different bits")
             rows.append({"m": m, "k": k, "n": n, "dtype": str(dtype),
-                         "err": err, "tol": tol})
+                         "err": err, "tol": tol,
+                         "blocks": log_matmul_geometry(m, k, n, n_sm)[
+                             "blocks"]})
             max_err = max(max_err, err)
     worst = max(r["err"] / r["tol"] for r in rows)
-    print(f"log_matmul: {len(rows)} cases within tol (fp32 and bf16), max "
-          f"|kernel - ref| {max_err:.3e}, worst err/tol {worst:.3e}")
+    print(f"log_matmul: {len(rows)} cases within tol (fp32 and bf16), each "
+          f"bit-identical over two calls, max |kernel - ref| {max_err:.3e}, "
+          f"worst err/tol {worst:.3e}")
     return rows, max_err
 
 
@@ -891,62 +943,131 @@ def _attention_work(q, k, mask) -> tuple[int, int]:
     return nbytes, 4 * H * D * int(m.sum())
 
 
-def phase_lm_times(dev, engine) -> dict:
-    """Kernel, plain, library and bound at the slice's own shapes: the 126
-    products of one decode step (M = max_batch rows of bf16), each with
-    its own layer's codes, and its 18 attention calls over the engine's
-    cache (bf16 q, fp32 cache, per-row offsets)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (attention_traffic_bytes,
-                                                     flash_attention_cuda)
-    from repro_torch.kernels.log_conv2d import decode_codes
-    from repro_torch.kernels.log_matmul import log_matmul_cuda
-    from repro_torch.kernels.ref import (attention_mask, ref_attention,
-                                         ref_log_matmul)
+def _layer_products(engine) -> list:
+    """The packed weights of every dense product of one forward, layer by
+    layer, as `QuantizedTensor` views of the stacked leaves."""
+    from repro_torch.core.logquant import QuantizedTensor
     from repro_torch.models.transformer import _rep
-    cfg, params = engine.cfg, engine.params
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, QuantizedTensor):
+            yield tree
+    seg = engine.params["segments"]["seg0"]
+    return [qt for r in range(engine.cfg.n_layers)
+            for qt in leaves(_rep(seg, r))]
+
+
+def phase_matmul_times(dev, engine, arch: str) -> dict:
+    """log_matmul at an LM's own shapes: its products of one forward (each
+    with its own layer's codes) at M = max_batch rows (a decode step) and
+    M = 16, in the activation dtype.  Kernel and library (`torch.matmul`
+    on weights decoded in advance) are read as device time, the sum of
+    their kernels in a `torch.profiler` window; beside them the CUDA-event
+    time of the loop of calls, the wrapper's host time a call, the plain
+    version, the bound and the blocks per launch."""
+    from repro_torch.kernels.log_conv2d import decode_codes
+    from repro_torch.kernels.log_matmul import (log_matmul_cuda,
+                                                log_matmul_geometry)
+    from repro_torch.kernels.ref import ref_log_matmul
+    cfg = engine.cfg
     B = engine.ecfg.max_batch
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    seg = params["segments"]["seg0"]
-    mats = []
-    for r in range(cfg.n_layers):
-        lp = _rep(seg, r)["l0"]
-        mats += [lp["attn"][n] for n in ("wq", "wk", "wv", "wo")]
-        mats += [lp["ffn"][n] for n in ("w1", "w3", "w2")]
+    mats = _layer_products(engine)
+    if len(mats) != PER_LAYER[arch]["log_matmul"] * cfg.n_layers:
+        fail(f"{arch}: {len(mats)} packed products, expected "
+             f"{PER_LAYER[arch]['log_matmul']} a layer")
     out = {}
     for M in (B, 16):
         xs = {qt.packed.shape[0]: torch.randn(
             (M, qt.packed.shape[0]), generator=gen, device=dev).to(
             cfg.act_dtype) for qt in mats}
-        run = lambda fn: [fn(xs[qt.packed.shape[0]], qt) for qt in mats]  # noqa: E731
-        t = {"ms": time_ms(lambda: run(lambda x, qt: log_matmul_cuda(
-            x, qt.packed, qt.scale)), 5)}
+
+        def kernel():
+            return [log_matmul_cuda(xs[qt.packed.shape[0]], qt.packed,
+                                    qt.scale) for qt in mats]
+        reps = 3
+        kern = [k for k in device_kernels(kernel, reps, opener=True)
+                if "FillFunctor" not in k[0]]
+        lm = [ms for name, ms in kern if "log_matmul_kernel" in name]
+        if not 0.98 * reps * len(mats) <= len(lm) <= reps * len(mats):
+            fail(f"{arch} M={M}: the profiler saw {len(lm)} log_matmul "
+                 f"kernels for {reps} x {len(mats)} products")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel()
+        host_us = (time.perf_counter() - t0) / len(mats) * 1e6
+        torch.cuda.synchronize()
+        code_bytes = sum(qt.packed.numel() for qt in mats)
         nbytes = sum(qt.packed.numel() + 2 * M * qt.packed.shape[0]
                      + 4 * qt.packed.shape[1] + 2 * M * qt.packed.shape[1]
                      for qt in mats)
         flops = sum(2 * M * qt.packed.numel() for qt in mats)
-        t.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
-                 ops_ms=flops / PEAK_FP32_FLOPS * 1e3, gbytes=nbytes / 1e9)
+        # the sum over one pass of the products; where the profiler dropped
+        # an event, the mean of those it saw stands in for it
+        t = {"calls": len(mats),
+             "ms": sum(lm) / reps * reps * len(mats) / len(lm),
+             "time": "device time by torch.profiler, sum over the calls",
+             "profiler_kernels_seen": f"{len(lm)} of {reps * len(mats)}",
+             "other_kernels_in_window": len(kern) - len(lm),
+             "event_loop_ms": time_ms(kernel, 5),
+             "host_us_per_call": host_us,
+             "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+             "ops_ms": flops / PEAK_FP32_FLOPS * 1e3, "gbytes": nbytes / 1e9,
+             "code_gbytes": code_bytes / 1e9}
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["code_tb_per_s"] = code_bytes / t["ms"] / 1e9
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
         if M == B:
-            t["plain_ms"] = time_ms(lambda: run(lambda x, qt: ref_log_matmul(
-                x, qt.packed, qt.scale)), 2)
+            t["plain_ms"] = time_ms(lambda: [ref_log_matmul(
+                xs[qt.packed.shape[0]], qt.packed, qt.scale)
+                for qt in mats], 2)
         w_lib = [(decode_codes(qt.packed) * qt.scale).to(cfg.act_dtype)
                  for qt in mats]
-        t["library_ms"] = time_ms(lambda: [torch.matmul(
-            xs[w.shape[0]], w) for w in w_lib], 5)
+
+        def library():
+            return [torch.matmul(xs[w.shape[0]], w) for w in w_lib]
+        lib = [k for k in device_kernels(library, reps, opener=True)
+               if "FillFunctor" not in k[0]]
+        t["library_ms"] = sum(ms for _, ms in lib) / reps
+        t["library_kernels"] = len(lib) / reps
+        t["library_event_loop_ms"] = time_ms(library, 5)
         del w_lib
         torch.cuda.empty_cache()
-        t["blocks"] = sorted({(-(-qt.packed.shape[1] // 32))
-                              * (-(-M // (4 if M <= 4 else 8)))
-                              for qt in mats})
+        t["blocks"] = {f"{k}x{n}": log_matmul_geometry(M, k, n, n_sm)[
+            "blocks"] for k, n in sorted({tuple(qt.packed.shape)
+                                          for qt in mats})}
         out[f"log_matmul M={M}"] = t
-        print(f"log_matmul x{len(mats)} (one forward) at M={M}: kernel "
-              f"{t['ms']:.3f} ms, library {t['library_ms']:.3f} ms, plain "
-              f"{t.get('plain_ms', float('nan')):.3f} ms, bound "
-              f"{t['bound_ms']:.3f} ms ({t['gbytes']:.3f} GB at "
-              f"{t['gbytes'] / t['ms']:.3f} TB/s), blocks per launch "
+        print(f"log_matmul x{len(mats)} ({arch}, one forward) at M={M}: "
+              f"device {t['ms']:.4f} ms ({t['code_tb_per_s']:.3f} TB/s of "
+              f"{t['code_gbytes']:.3f} GB of codes, {t['share_of_bound']:.3f}"
+              f" of the bound), library device {t['library_ms']:.4f} ms "
+              f"({t['library_kernels']:.0f} kernels), bound {t['bound_ms']:.4f} "
+              f"ms; event loop {t['event_loop_ms']:.4f} ms (library "
+              f"{t['library_event_loop_ms']:.4f}), host "
+              f"{t['host_us_per_call']:.1f} us a call, plain "
+              f"{t.get('plain_ms', float('nan')):.3f} ms; blocks per launch "
               f"{t['blocks']}")
+    return out
+
+
+def phase_lm_times(dev, engine) -> dict:
+    """Kernel, plain, library and bound of the attention kernel at the
+    slice's own shapes: the 18 calls of one decode step over the engine's
+    cache (bf16 q, fp32 cache, per-row offsets), and the long shapes of
+    phase 8."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_traffic_bytes,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.ref import attention_mask, ref_attention
+    from repro_torch.models.transformer import _rep
+    cfg = engine.cfg
+    B = engine.ecfg.max_batch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {}
 
     # attention of one decode step over the engine's (filled) cache
     caches = [_rep(engine.cache["segments"]["seg0"], r)["l0"]
@@ -1180,6 +1301,8 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if "log_matmul" in built:
+        check_registers(built["log_matmul"]["log"], 128)
 
     phase_decode(dev)
     checks, max_err = phase_sweeps(dev)
@@ -1188,16 +1311,22 @@ def main() -> int:
     mm_rows, mm_err = phase_log_matmul(dev)
     at_rows, at_err = phase_attention(dev)
     lm = phase_serving(dev, LM_ARCH)
-    lm_times = phase_lm_times(dev, lm.pop("engine"))
+    lm_engine = lm.pop("engine")
+    lm_times = phase_matmul_times(dev, lm_engine, LM_ARCH)
+    lm_times.update(phase_lm_times(dev, lm_engine))
+    del lm_engine
     wk_rows, wk_err = phase_wkv6(dev)
     rw = phase_serving(dev, RWKV_ARCH)
-    wk_times = phase_wkv6_times(dev, rw.pop("engine"))
+    rw_engine = rw.pop("engine")
+    wk_times = phase_wkv6_times(dev, rw_engine)
+    rw_mm_times = phase_matmul_times(dev, rw_engine, RWKV_ARCH)
+    del rw_engine
 
     tot = {k: sum(n[k] for n in nets)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                     "ops_ms")}
+           for k in ("ms", "plain_ms", "library_ms", "decode_conv_ms",
+                     "bound_ms", "bytes_ms", "ops_ms")}
 
-    def row(name, src, replaces, n, err, t):
+    def row(name, src, replaces, n, err, t, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -1205,15 +1334,19 @@ def main() -> int:
                 "bound_ms": t["bound_ms"],
                 "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
                              else "bytes"),
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_ms"], **extra}
 
+    mm = lm_times[f"log_matmul M={lm['args']['max_batch']}"]
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
-            "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot),
+            "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot,
+            decode_conv_ms=tot["decode_conv_ms"]),
         row("log_matmul_cuda", "log_matmul.cu",
             "src/repro/kernels/log_matmul.py:95",
             lm["launches"]["log_matmul"] + rw["launches"]["log_matmul"],
-            mm_err, lm_times[f"log_matmul M={lm['args']['max_batch']}"]),
+            mm_err, mm, time=f"device time by torch.profiler over the "
+            f"{mm['calls']} products of one {LM_ARCH} decode step; "
+            f"plain_ms by CUDA events", event_loop_ms=mm["event_loop_ms"]),
         row("flash_attention_cuda", "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:125",
             lm["launches"]["attention"], at_err, lm_times["attention decode"]),
@@ -1227,12 +1360,15 @@ def main() -> int:
          "conv_times": {"/".join(k): v for k, v in times.items()},
          "log_matmul_checks": mm_rows, "attention_checks": at_rows,
          "lm_slice": lm, "lm_times": lm_times, "wkv6_checks": wk_rows,
-         "rwkv_slice": rw, "wkv6_times": wk_times}, indent=1, default=str))
+         "rwkv_slice": rw, "wkv6_times": wk_times,
+         "rwkv_log_matmul_times": rw_mm_times}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
-          f"the four nets ({sum(CONVS_PER_NET.values())} convs); log_matmul "
-          f"and attention times are sums over one {LM_ARCH} decode step "
-          f"(126 and 18 calls), wkv6 times over one {RWKV_ARCH} decode step "
-          f"(24 calls); log_matmul launches are those of both LM main "
+          f"the four nets ({sum(CONVS_PER_NET.values())} convs), library = "
+          f"F.conv2d on weights decoded in advance; log_matmul and attention "
+          f"times are sums over one {LM_ARCH} decode step (126 and 18 calls; "
+          f"log_matmul and its library as torch.profiler device time), wkv6 "
+          f"times over one {RWKV_ARCH} decode step (24 calls); log_matmul "
+          f"launches are those of both LM main "
           f"paths ({lm['launches']['log_matmul']} + "
           f"{rw['launches']['log_matmul']})")
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")

@@ -3,8 +3,10 @@
 Counterpart of `repro.kernels.log_matmul`.  ``log_matmul_cuda`` is the
 wrapper of the hand-written CUDA kernel `csrc/log_matmul.cu`, which
 replaces the TPU kernel `log_matmul_pallas`: it reads the int8 codes as
-stored, decodes eq. (8) next to the multiply-adds, sums in fp32 and applies
-the per-column scale in the epilogue.  Its plain version is
+stored, decodes eq. (8) from a table next to the multiply-adds, sums in
+fp32 and applies the per-column scale in the epilogue.  Its launch shape
+(rows and columns per block, shares of K) comes from the plain function
+`log_matmul_geometry`, which the CPU tests reach.  Its plain version is
 `ref.ref_log_matmul` (decode, then an fp32 `torch.matmul`), which the
 wrapper runs for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises.  `kernels/ops.log_matmul` dispatches between the two.
@@ -13,6 +15,7 @@ raises.  `kernels/ops.log_matmul` dispatches between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,12 +26,61 @@ from .ref import ref_log_matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I32_MAX = 2 ** 31 - 1
+_GRID_YZ_MAX = 65535
+# the kernel's tile: BN columns per block; K is walked in stages of
+# STAGE_ROWS[bm] rows (csrc/log_matmul.cu: BN, stage_rows)
+BN = 128
+STAGE_ROWS = {4: 128, 8: 64}
+
+
+def log_matmul_geometry(M: int, K: int, N: int, n_sm: int = 132) -> dict:
+    """The launch shape of the CUDA kernel for an ``[M, K] @ [K, N]``
+    product on a card of ``n_sm`` SMs.
+
+    A block owns ``bm`` rows (4, or 8 when M > 4), ``BN`` columns and one
+    share of ``k_per_split`` rows of K (a multiple of ``STAGE_ROWS[bm]``).  The
+    number of shares is the one that brings the launch nearest to two
+    blocks per SM, and at most one share per stage of K: ``splits`` shares
+    of ``k_per_split`` rows cover K exactly and none is empty.  → dict with
+    ``bm``, ``bn``, ``m_tiles``, ``n_tiles``, ``splits``, ``k_per_split``
+    and ``blocks``."""
+    if min(M, K, N) < 1:
+        raise ValueError(f"empty product: M={M}, K={K}, N={N}")
+    bm = 4 if M <= 4 else 8
+    m_tiles, n_tiles = -(-M // bm), -(-N // BN)
+    stages = -(-K // STAGE_ROWS[bm])
+    splits = min(stages, max(1, round(2 * n_sm / (m_tiles * n_tiles))))
+    k_per_split = -(-stages // splits) * STAGE_ROWS[bm]
+    splits = -(-K // k_per_split)
+    return {"bm": bm, "bn": BN, "m_tiles": m_tiles, "n_tiles": n_tiles,
+            "splits": splits, "k_per_split": k_per_split,
+            "blocks": m_tiles * n_tiles * splits}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per device: one zeroed int32 ticket per (row, column) tile of a split
+# product; each launch leaves the tickets it used at zero again, so launches
+# that share a device run one after another on one stream, as the port's
+# callers do
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, tiles: int) -> torch.Tensor:
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device.index] = buf
+    return buf
 
 
 def _kernel_fn():
     fn = _build.load("log_matmul").log_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -78,14 +130,24 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
     if min(M, K, N) < 1:
         raise ValueError(f"empty product: x {tuple(x.shape)}, codes "
                          f"{tuple(packed.shape)}")
-    if max(M, K, N) > _I32_MAX or -(-N // 32) > _I32_MAX \
-            or -(-M // 4) > 65535:
+    if max(M, N) > _I32_MAX or K > _I32_MAX - 4 * STAGE_ROWS[4]:
+        raise ValueError("shape too large for the kernel's indices")
+    geo = log_matmul_geometry(M, K, N, _sm_count(x.device.index))
+    if geo["m_tiles"] > _GRID_YZ_MAX or geo["splits"] > _GRID_YZ_MAX:
         raise ValueError("shape too large for the kernel's launch grid")
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    part = tickets = None
+    if geo["splits"] > 1:
+        part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
+                           device=x.device)
+        tickets = _tickets(x.device, geo["m_tiles"] * geo["n_tiles"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                       y.data_ptr(), M, K, N, cfg.bits, cfg.frac_bits,
-                       _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], stream)
+                       y.data_ptr(), part.data_ptr() if part is not None
+                       else None, tickets.data_ptr() if tickets is not None
+                       else None, M, K, N, cfg.bits, cfg.frac_bits,
+                       _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+                       geo["bm"], geo["k_per_split"], geo["splits"], stream)
     if err != 0:
         raise RuntimeError(f"log_matmul CUDA launch failed: cudaError {err}")
     log_matmul_cuda.launches += 1

@@ -6,7 +6,9 @@ against `log_matmul_pallas(interpret=True)` and JAX's `ref_log_matmul` on
 the shapes of `tests/test_kernels_log_matmul.py`: fp32 within 1e-5 (rtol
 and atol; JAX's CPU `exp2` decode is up to ~1e-6 relative off the exact
 one), bf16 within 3e-2 (one bf16 rounding of the output apart from
-summation order).  The test marked ``cuda`` holds the hand-written kernel
+summation order).  The CPU tests of `log_matmul_geometry` check the
+kernel's launch shape at every dense-layer shape of gemma-2b and
+rwkv6-1.6b.  The test marked ``cuda`` holds the hand-written kernel
 against its plain version; it runs only where there is a card.
 """
 
@@ -23,10 +25,12 @@ try:  # the machine with the card has no JAX: only the cuda test runs there
 except ImportError:
     jnp = None
 
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import logquant as tlq  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.log_conv2d import decode_codes  # noqa: E402
-from repro_torch.kernels.log_matmul import log_matmul_cuda  # noqa: E402
+from repro_torch.kernels.log_matmul import (  # noqa: E402
+    STAGE_ROWS, log_matmul_cuda, log_matmul_geometry)
 from repro_torch.kernels.ref import ref_log_matmul  # noqa: E402
 from repro_torch.serving.quantize import quantize_params  # noqa: E402
 
@@ -133,6 +137,59 @@ def test_wrapper_checks_and_cpu_route():
         log_matmul_cuda(xt.double(), qt.packed, qt.scale)
 
 
+def _dense_kn(arch: str) -> set:
+    """(K, N) of every dense product of one layer of ``arch``: attention
+    and GeGLU for gemma-2b, time-mix and channel-mix for rwkv6-1.6b."""
+    c = get_config(arch)
+    d, f = c.d_model, c.d_ff
+    if arch == "rwkv6-1.6b":   # wr wk wv wg wo cr; ck; cv
+        return {(d, d), (d, f), (f, d)}
+    q, kv = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return {(d, q), (d, kv), (q, d), (d, f), (f, d)}   # wq wk/wv wo w1/w3 w2
+
+
+LM_KN = sorted(_dense_kn("gemma-2b") | _dense_kn("rwkv6-1.6b"))
+
+
+def test_lm_dense_shapes():
+    """The shapes the geometry tests cover are the LMs' own."""
+    assert LM_KN == [(2048, 256), (2048, 2048), (2048, 7168),
+                     (2048, 16384), (7168, 2048), (16384, 2048)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", LM_KN)
+def test_geometry_covers_k_and_fills_the_card(m, k, n):
+    """The shares cover K exactly, none is empty, each is whole stages;
+    the launch comes near two blocks per SM (at least 1.5) unless K has
+    no more stages to share out."""
+    n_sm = 132
+    g = log_matmul_geometry(m, k, n, n_sm)
+    rows = STAGE_ROWS[g["bm"]]
+    assert g["bm"] == (4 if m <= 4 else 8)
+    assert g["m_tiles"] * g["bm"] >= m > (g["m_tiles"] - 1) * g["bm"]
+    assert g["n_tiles"] * g["bn"] >= n > (g["n_tiles"] - 1) * g["bn"]
+    assert g["k_per_split"] % rows == 0
+    assert (g["splits"] - 1) * g["k_per_split"] < k <= \
+        g["splits"] * g["k_per_split"]
+    assert g["blocks"] == g["m_tiles"] * g["n_tiles"] * g["splits"]
+    assert g["blocks"] >= 1.5 * n_sm or g["splits"] == -(-k // rows)
+    assert g["blocks"] <= 3 * n_sm or g["splits"] == 1
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 128), (4, 1, 7), (4, 63, 2048),
+                                   (4, 129, 2048), (33, 4097, 300),
+                                   (130, 257, 129), (8, 16384, 16384)])
+def test_geometry_edge_shapes(m, k, n):
+    """Ragged and extreme shapes: K = 1, K under one stage, many tiles."""
+    g = log_matmul_geometry(m, k, n)
+    assert g["splits"] >= 1 and g["k_per_split"] >= 1
+    assert (g["splits"] - 1) * g["k_per_split"] < k <= \
+        g["splits"] * g["k_per_split"]
+    with pytest.raises(ValueError, match="empty"):
+        log_matmul_geometry(0, k, n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -144,8 +201,10 @@ def cuda_device():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version(cuda_device):
     """The hand-written kernel against `ref_log_matmul` on the card: the
-    decode table bit for bit through a 1 x 128 product, the sweep shapes
-    and a slice of a stacked code array, in fp32 and bf16."""
+    decode table bit for bit through a 1 x 128 product, the sweep shapes,
+    K on either side of a share boundary, K = 1 and K = 16384, M from 1 to
+    32, and a slice of a stacked code array, in fp32 and bf16; two calls
+    on the same inputs give the same bits."""
     dev = cuda_device
     codes = torch.arange(128, dtype=torch.int8, device=dev).reshape(1, 128)
     y = log_matmul_cuda(torch.ones((1, 1), device=dev), codes,
@@ -154,7 +213,12 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
                        decode_codes(codes).reshape(-1).view(torch.int32))
     stack = quantize_params({"w1": torch.randn(3, 64, 48, device=dev)})["w1"]
     cases = []
-    for m, k, n in SHAPES + [(1, 33, 7)]:
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    kps = log_matmul_geometry(4, 2048, 2048, n_sm)["k_per_split"]
+    edges = [(4, kps + d, 2048) for d in (-1, 0, 1)] + [
+        (4, 1, 2048), (4, 16384, 2048), (1, 2048, 256)]
+    edges += [(m, 2048, 512) for m in (1, 4, 5, 8, 16, 32)]
+    for m, k, n in SHAPES + [(1, 33, 7)] + edges:
         x, w = _mk(m, k, n)
         qt = tlq.quantize_tensor(torch.from_numpy(w).to(dev))
         cases.append((x, qt.packed, qt.scale))
@@ -168,6 +232,11 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
             got = log_matmul_cuda(xt, packed, scale)
             torch.cuda.synchronize()
             assert log_matmul_cuda.launches == before + 1
+            again = log_matmul_cuda(xt, packed, scale)
+            assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                        else torch.int32),
+                               again.view(torch.int16 if dtype ==
+                                          torch.bfloat16 else torch.int32))
             assert got.dtype == dtype and got.shape == want.shape
             tol = rel * (float(want.float().abs().max()) + 1)
             assert float((got.float() - want.float()).abs().max()) <= tol
