@@ -11,11 +11,17 @@ goes wrong:
      TF32 is switched off for cuDNN and matmul, so the plain versions are
      full fp32;
   2. the kernel build and its time;
-  3. the decode table: all 128 codes through a 1x1 conv (x = 1, scale = 1),
-     bit for bit against `decode_codes`, on both kernel paths;
+  3. the decode table: all 128 codes through a 1x1 conv (scale = 1), bit
+     for bit against `decode_codes`, on the depthwise path (x = 1) and on
+     both load paths of the dense path: the gather (Cin = 2, x = (1, 0))
+     and the 16-byte cp.async copies (Cin = 16, x one-hot);
   4. the kernel against `log_conv2d_ref` and `log_conv2d_blockwise` on the
-     conv sweeps of the tests and on the 61 conv shapes of the four paper
-     CNNs at batch 1 (tolerance 1e-4 * (max|y_ref| + 1));
+     conv sweeps of the tests, on shapes whose reduction falls on either
+     side of a share boundary of the split-K geometry (`SPLIT_SHAPES`) and
+     on the 61 conv shapes of the four paper CNNs at batch 1 (tolerance
+     1e-4 * (max|y_ref| + 1)); every case is run twice and must give the
+     same bits, and the geometry (tiles, shares, blocks) of each shape is
+     printed;
   5. the slice: VGG-16, MobileNet v1, ResNet-34 and SqueezeNet at full
      width, 224 px, 1000 classes, batch 8, random weights from a seed,
      packed by `quantize_cnn_params(conv_layout="lane_packed")` and run with
@@ -24,9 +30,15 @@ goes wrong:
      match ``"blockwise"`` on the same input, and the logits must match the
      ``"blockwise"`` forward's.  Each net's forward is timed and profiled
      (device busy time, idle share, top kernels);
-  6. per-conv times at batch 8: kernel, plain version (im2col x matmul),
+  6. per-conv times at batch 8 over the 61 distinct shapes: the kernel and
      the library call (`F.conv2d` on weights decoded in advance, the same
-     yardstick as the LM kernels'), decode + `F.conv2d` and the fp32 bound;
+     yardstick as the LM kernels', layout copies included) as device time,
+     the sum of a call's kernels in a `torch.profiler` window, with the
+     CUDA-event mean of a loop of calls beside each; the plain version (im2col
+     x matmul) and decode + `F.conv2d` by CUDA events; TFLOP/s, blocks,
+     the bound max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s), the bf16
+     tensor-core peak the dense path runs on, and the fp32 bound
+     (FLOP / 67 TFLOP/s) beside it;
   7. the log_matmul kernel against `ref_log_matmul`: the decode table bit
      for bit through a 1 x 128 product, the shapes of
      `tests/test_kernels_log_matmul.py`, ragged shapes, K on either side
@@ -92,8 +104,8 @@ goes wrong:
 Phases 5, 9 and 12 drive the main paths: the kernels' launch counts are set
 to 0 just before each and read just after.
 
-The build log must show the log_matmul kernels at no more than 128
-registers a thread and no spill.  Details go to
+The build log must show the log_conv2d and log_matmul kernels at no more
+than 128 registers a thread and no spill.  Details go to
 `chiprun_out/chip_smoke.json`.  The last three lines are the
 kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -116,8 +128,10 @@ T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks from NVIDIA's data sheet: fp32 on the CUDA cores, HBM3
+# H100 SXM peaks from NVIDIA's data sheet: fp32 on the CUDA cores, dense
+# bf16 on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
@@ -153,6 +167,19 @@ LANE_SHAPES = [
     (1, 8, 8, 8, 3, 8, 1, "VALID", 4),
     (2, 8, 8, 16, 5, 8, 2, 2, 4),
     (1, 8, 8, 4, 3, 8, 1, ((1, 2), (0, 1)), 4),
+]
+
+# the conv kernel's split-K: R on either side of a share boundary of
+# `log_conv2d_geometry` (one 128 x 64 tile: R = 8432 gives 264 shares of one
+# stage of 32, R = 8464 gives 133 shares of two, the last one half a stage),
+# a gathered R, a half stage in the last share, grouped and ragged-N tiles
+SPLIT_SHAPES = [
+    (1, 4, 4, 8432, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 8464, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 8440, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 48, 1, 64, 1, "VALID", 1),
+    (1, 6, 6, 64, 3, 64, 1, "SAME", 2),
+    (2, 5, 5, 96, 3, 72, 2, "SAME", 1),
 ]
 
 
@@ -273,14 +300,21 @@ def phase_decode(dev) -> None:
     codes = torch.arange(128, dtype=torch.int8, device=dev)
     want = decode_codes(codes).view(torch.int32)
     ones = torch.ones(128, device=dev)
-    # Cin = 1: the depthwise path; Cin = 2 with x = (1, 0): the dense path
+    # Cin = 1: the depthwise path; Cin = 2 with x = (1, 0): the dense path's
+    # gather; Cin = 16 with x one-hot: its cp.async path
     y1 = log_conv2d_fused(torch.ones((1, 1, 1, 1), device=dev),
                           codes.reshape(1, 1, 1, 128), ones, padding="VALID")
     w2 = torch.stack([codes, codes.flip(0)]).reshape(1, 1, 2, 128)
     x2 = torch.tensor([1.0, 0.0], device=dev).reshape(1, 1, 1, 2)
     y2 = log_conv2d_fused(x2, w2.contiguous(), ones, padding="VALID")
+    w16 = torch.stack([codes.roll(j) for j in (5, 0, 77, 3)] * 4)
+    x16 = torch.zeros((1, 1, 1, 16), device=dev)
+    x16[..., 1] = 1.0
+    y16 = log_conv2d_fused(x16, w16.reshape(1, 1, 16, 128).contiguous(), ones,
+                           padding="VALID")
     torch.cuda.synchronize()
-    for path, y in (("depthwise", y1), ("dense", y2)):
+    for path, y in (("depthwise", y1), ("dense gather", y2),
+                    ("dense cp.async", y16)):
         bad = int((y.reshape(-1).view(torch.int32) != want).sum())
         print(f"decode table, {path} path: {128 - bad}/128 codes bit-exact")
         if bad:
@@ -289,23 +323,38 @@ def phase_decode(dev) -> None:
 
 def check_conv(r: dict, rng, dev, label: str) -> dict:
     """Kernel (HWIO and, where the group layout packs, lane-packed codes)
-    against ref and blockwise on one shape."""
+    against ref and blockwise on one shape; each kernel call is made twice
+    and must give the same bits."""
     from repro_torch.kernels.log_conv2d import (log_conv2d_blockwise,
                                                 log_conv2d_fused,
+                                                log_conv2d_geometry,
                                                 log_conv2d_ref)
     x, qt, hwio, codes, lane = make_conv(r, rng, dev)
     kw = dict(stride=r["stride"], padding=r["padding"], groups=r["groups"])
     y_ref = log_conv2d_ref(x, hwio, qt.scale, **kw)
     y_bw = log_conv2d_blockwise(x, hwio, qt.scale, **kw)
-    outs = {"hwio": log_conv2d_fused(x, hwio, qt.scale, **kw)}
+    outs = {"hwio": [log_conv2d_fused(x, hwio, qt.scale, **kw)
+                     for _ in range(2)]}
     if lane is not None:
-        outs["lane"] = log_conv2d_fused(x, codes, qt.scale, lane=lane, **kw)
+        outs["lane"] = [log_conv2d_fused(x, codes, qt.scale, lane=lane, **kw)
+                        for _ in range(2)]
     torch.cuda.synchronize()
     tol = 1e-4 * (float(y_ref.abs().max()) + 1)
-    res = {"shape": label, "tol": tol}
-    for name, y in outs.items():
+    geo = log_conv2d_geometry(*(r[k] for k in ("B", "H", "W", "C", "K",
+                                               "Cout", "stride", "padding",
+                                               "groups")),
+                              n_sm=torch.cuda.get_device_properties(dev)
+                              .multi_processor_count)
+    res = {"shape": label, "tol": tol,
+           "geometry": {k: geo[k] for k in ("path", "load", "tiles",
+                                            "splits", "stages_per_split",
+                                            "blocks")}}
+    for name, (y, again) in outs.items():
         if y.shape != y_ref.shape or not bool(torch.isfinite(y).all()):
             fail(f"{label} {name}: shape {tuple(y.shape)} or non-finite")
+        if not torch.equal(y.view(torch.int32), again.view(torch.int32)):
+            fail(f"{label} {name}: two calls on the same inputs gave "
+                 f"different bits")
         res[f"{name}_vs_ref"] = float((y - y_ref).abs().max())
         res[f"{name}_vs_blockwise"] = float((y - y_bw).abs().max())
         if max(res[f"{name}_vs_ref"], res[f"{name}_vs_blockwise"]) > tol:
@@ -328,19 +377,28 @@ def phase_sweeps(dev) -> tuple[list, float]:
     from repro_torch.models.cnn import zoo_conv_shapes
     rng = np.random.default_rng(SEED)
     rows = [check_conv(sweep_record(s), rng, dev, f"sweep {s}")
-            for s in SHAPES + LANE_SHAPES]
-    print(f"sweeps: {len(rows)} shapes within tol, max |kernel - ref| "
+            for s in SHAPES + LANE_SHAPES + SPLIT_SHAPES]
+    print(f"sweeps: {len(rows)} shapes within tol, each bit-identical over "
+          f"two calls, max |kernel - ref| "
           f"{max(r['hwio_vs_ref'] for r in rows):.3e}")
+    for r in rows[len(SHAPES) + len(LANE_SHAPES):]:
+        print(f"  {r['shape']}: {r['geometry']}")
     zoo = zoo_conv_shapes(batch=1, img=IMG, n_classes=N_CLASSES)
     if len(zoo) != 61:
         fail(f"expected 61 zoo conv shapes, traced {len(zoo)}")
     zrows = [check_conv(r, rng, dev, "zoo " + "/".join(sig(r)[1:]))
              for r in zoo]
+    for r in zrows:
+        g = r["geometry"]
+        print(f"  {r['shape']}: {g['path']} ({g['load']}), {g['tiles']} "
+              f"tiles x {g['splits']} shares of {g['stages_per_split']} "
+              f"stages = {g['blocks']} blocks")
     err = max(max(r.get("lane_vs_ref", 0.0), r["hwio_vs_ref"]) for r in zrows)
     worst = max(max(r.get("lane_vs_ref", 0.0), r["hwio_vs_ref"]) / r["tol"]
-                for r in zrows)
-    print(f"zoo shapes at batch 1: {len(zrows)} within tol, max |kernel - "
-          f"ref| {err:.3e}, worst err/tol {worst:.3e}")
+                for r in zrows + rows)
+    print(f"zoo shapes at batch 1: {len(zrows)} within tol, each "
+          f"bit-identical over two calls, max |kernel - ref| {err:.3e}, "
+          f"worst err/tol (sweeps and zoo) {worst:.3e}")
     return rows + zrows, err
 
 
@@ -466,15 +524,39 @@ def phase_slice(dev) -> tuple[list, int]:
     return rows, main_launches
 
 
+def _device_ms(fn, what: str, reps: int = 5) -> tuple[float, float]:
+    """(ms a call, kernels a call) of ``fn``: the sum of every CUDA kernel
+    it launches, from a `torch.profiler` window over ``reps`` calls.  Every
+    call launches the same kernels, so a window that saw no kernel, or a
+    count that is not a multiple of ``reps``, lost events: it is taken
+    again, twice at most, and then the run fails."""
+    for _ in range(3):
+        kern = [ms for name, ms in device_kernels(fn, reps, opener=True)
+                if "FillFunctor" not in name]
+        if kern and len(kern) % reps == 0:
+            return sum(kern) / reps, len(kern) / reps
+    fail(f"{what}: the profiler lost kernel events in three windows "
+         f"(last saw {len(kern)} for {reps} calls)")
+
+
 def phase_conv_times(dev) -> tuple[dict, list]:
+    """Per-conv times at batch 8 over the 61 distinct conv shapes of the
+    four nets.  Kernel and library (`F.conv2d` on weights decoded in
+    advance, layout copies included) are read as device time, the sum of
+    the kernels of a call in a `torch.profiler` window; the CUDA-event mean
+    of a loop of calls stands beside them.  Bound: max(bytes / 3.35 TB/s,
+    FLOP / 989 TFLOP/s), the bf16 tensor-core peak the dense path runs on;
+    the fp32 bound (FLOP / 67 TFLOP/s) is kept beside it."""
     from repro_torch.kernels.log_conv2d import (conv_nhwc, decode_codes,
                                                 log_conv2d_blockwise,
                                                 log_conv2d_fused,
+                                                log_conv2d_geometry,
                                                 log_conv2d_ref,
                                                 normalize_padding)
     from repro_torch.models.cnn import CNNS, trace_conv_shapes, \
         zoo_conv_shapes
     rng = np.random.default_rng(SEED + 2)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     times = {}
     with torch.no_grad():
         for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
@@ -485,25 +567,46 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             pads = normalize_padding(r["padding"], r["K"], r["stride"],
                                      r["H"], r["W"])
             w = decode_codes(hwio) * qt.scale.reshape(-1)
-            t = {"ms": time_ms(lambda: log_conv2d_fused(
-                     x, codes, qt.scale, lane=lane, **kw), 5),
+
+            def kernel():
+                return log_conv2d_fused(x, codes, qt.scale, lane=lane, **kw)
+
+            def library():
+                return conv_nhwc(x, w, stride=r["stride"], pads=pads,
+                                 groups=r["groups"])
+            ms, n_kern = _device_ms(kernel, f"kernel {sig(r)}")
+            lib_ms, n_lib = _device_ms(library, f"library {sig(r)}")
+            geo = log_conv2d_geometry(*(r[k] for k in (
+                "B", "H", "W", "C", "K", "Cout", "stride", "padding",
+                "groups")), n_sm=n_sm)
+            t = {"ms": ms, "kernels_per_call": n_kern,
+                 "time": "device time by torch.profiler",
+                 "event_ms": time_ms(kernel, 5),
+                 "library_ms": lib_ms, "library_kernels_per_call": n_lib,
+                 "library_event_ms": time_ms(library, 5),
                  "decode_conv_ms": time_ms(lambda: log_conv2d_blockwise(
                      x, hwio, qt.scale, **kw), 5),
                  "plain_ms": time_ms(lambda: log_conv2d_ref(
                      x, hwio, qt.scale, **kw), 2),
-                 "library_ms": time_ms(lambda: conv_nhwc(
-                     x, w, stride=r["stride"], pads=pads,
-                     groups=r["groups"]), 5),
                  "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
-                 "ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
-                 "gflop": flops / 1e9}
+                 "ops_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                 "fp32_bound_ms": max(nbytes / PEAK_HBM_BYTES,
+                                      flops / PEAK_FP32_FLOPS) * 1e3,
+                 "gflop": flops / 1e9, "blocks": geo["blocks"],
+                 "splits": geo["splits"], "path": geo["path"]}
             t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+            t["bound_by"] = ("operations" if t["ops_ms"] >= t["bytes_ms"]
+                             else "bytes")
+            t["tflops"] = flops / ms / 1e9
             times[sig(r)] = t
             print(f"conv {'/'.join(sig(r))} ({','.join(r['nets'])}): kernel "
-                  f"{t['ms']:.4f} ms, library (F.conv2d on decoded weights) "
-                  f"{t['library_ms']:.4f} ms, decode + conv "
-                  f"{t['decode_conv_ms']:.4f} ms, plain "
-                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                  f"{ms:.4f} ms device ({t['tflops']:.1f} TFLOP/s, "
+                  f"{geo['blocks']} blocks, {geo['splits']} shares; events "
+                  f"{t['event_ms']:.4f}), library {lib_ms:.4f} ms device "
+                  f"({n_lib:.0f} kernels; events {t['library_event_ms']:.4f})"
+                  f", decode + conv {t['decode_conv_ms']:.4f}, plain "
+                  f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+                  f"({t['bound_by']}), fp32 bound {t['fp32_bound_ms']:.4f}")
             del x, qt, hwio, codes, w
             torch.cuda.empty_cache()
     nets = []
@@ -511,17 +614,25 @@ def phase_conv_times(dev) -> tuple[dict, list]:
         recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
                                  n_classes=N_CLASSES)
         tot = {k: sum(times[sig(r)][k] for r in recs)
-               for k in ("ms", "library_ms", "plain_ms", "decode_conv_ms",
-                         "bound_ms",
-                         "bytes_ms", "ops_ms", "gflop")}
+               for k in ("ms", "event_ms", "library_ms", "library_event_ms",
+                         "plain_ms", "decode_conv_ms", "bound_ms",
+                         "fp32_bound_ms", "bytes_ms", "ops_ms", "gflop")}
         tot["net"], tot["convs"] = name, len(recs)
+        tot["dense_ms"] = sum(times[sig(r)]["ms"] for r in recs
+                              if times[sig(r)]["path"] == "dense")
+        tot["dense_library_ms"] = sum(
+            times[sig(r)]["library_ms"] for r in recs
+            if times[sig(r)]["path"] == "dense")
         nets.append(tot)
         print(f"convs {name:12s} x{len(recs)} at batch {BATCH}: kernel "
-              f"{tot['ms']:.3f} ms, library (F.conv2d on decoded weights) "
-              f"{tot['library_ms']:.3f} ms, decode + conv "
-              f"{tot['decode_conv_ms']:.3f} ms, "
-              f"plain {tot['plain_ms']:.3f} ms, fp32 bound "
-              f"{tot['bound_ms']:.3f} ms ({tot['gflop']:.1f} GFLOP, "
+              f"{tot['ms']:.3f} ms device (events {tot['event_ms']:.3f}; "
+              f"dense convs {tot['dense_ms']:.3f}), library "
+              f"{tot['library_ms']:.3f} ms device (events "
+              f"{tot['library_event_ms']:.3f}; dense convs "
+              f"{tot['dense_library_ms']:.3f}), decode + conv "
+              f"{tot['decode_conv_ms']:.3f} ms, plain {tot['plain_ms']:.3f} "
+              f"ms, bound {tot['bound_ms']:.3f} ms (fp32 bound "
+              f"{tot['fp32_bound_ms']:.3f}; {tot['gflop']:.1f} GFLOP, "
               f"{tot['gflop'] / tot['ms']:.2f} TFLOP/s)")
     return times, nets
 
@@ -1301,8 +1412,9 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    if "log_matmul" in built:
-        check_registers(built["log_matmul"]["log"], 128)
+    for name in ("log_conv2d", "log_matmul"):
+        if name in built:
+            check_registers(built[name]["log"], 128)
 
     phase_decode(dev)
     checks, max_err = phase_sweeps(dev)
@@ -1323,8 +1435,9 @@ def main() -> int:
     del rw_engine
 
     tot = {k: sum(n[k] for n in nets)
-           for k in ("ms", "plain_ms", "library_ms", "decode_conv_ms",
-                     "bound_ms", "bytes_ms", "ops_ms")}
+           for k in ("ms", "event_ms", "plain_ms", "library_ms",
+                     "library_event_ms", "decode_conv_ms", "bound_ms",
+                     "fp32_bound_ms", "bytes_ms", "ops_ms")}
 
     def row(name, src, replaces, n, err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -1340,6 +1453,13 @@ def main() -> int:
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
             "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot,
+            time=f"device time by torch.profiler, sum over the "
+            f"{sum(CONVS_PER_NET.values())} convs of one forward of each "
+            f"net, each conv timed alone; plain_ms and "
+            "the *_event_ms by CUDA events; bound at the 989 TFLOP/s bf16 "
+            "tensor-core peak", event_ms=tot["event_ms"],
+            library_event_ms=tot["library_event_ms"],
+            fp32_bound_ms=tot["fp32_bound_ms"],
             decode_conv_ms=tot["decode_conv_ms"]),
         row("log_matmul_cuda", "log_matmul.cu",
             "src/repro/kernels/log_matmul.py:95",
@@ -1363,8 +1483,9 @@ def main() -> int:
          "rwkv_slice": rw, "wkv6_times": wk_times,
          "rwkv_log_matmul_times": rw_mm_times}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
-          f"the four nets ({sum(CONVS_PER_NET.values())} convs), library = "
-          f"F.conv2d on weights decoded in advance; log_matmul and attention "
+          f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
+          f"and its library, F.conv2d on weights decoded in advance, as "
+          f"torch.profiler device time); log_matmul and attention "
           f"times are sums over one {LM_ARCH} decode step (126 and 18 calls; "
           f"log_matmul and its library as torch.profiler device time), wkv6 "
           f"times over one {RWKV_ARCH} decode step (24 calls); log_matmul "

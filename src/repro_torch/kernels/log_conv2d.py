@@ -6,8 +6,11 @@ contract (`kernels/ops.conv2d` dispatches between them):
   * ``log_conv2d_fused`` — the wrapper of the hand-written CUDA kernel
     `csrc/log_conv2d.cu`, which replaces the TPU kernel
     `log_conv2d_fused_pallas`.  It reads the int8 codes as stored (natural
-    HWIO or lane-packed), decodes them with eq. (8) next to the FMAs and
-    applies the per-channel scale in the epilogue.  On a CPU tensor it runs
+    HWIO or lane-packed), decodes them next to the tensor cores into two
+    exact bf16 planes (`plane_table`), multiplies them with x split into
+    bf16 hi and lo pieces, sums in fp32 and applies √2 and the per-channel
+    scale in the epilogue.  Its launch shape (tile, shares of the reduction)
+    comes from the plain `log_conv2d_geometry`.  On a CPU tensor it runs
     the plain `log_conv2d_blockwise` instead; on a CUDA tensor it launches
     the kernel or raises.
   * ``log_conv2d_blockwise`` — decode, then `F.conv2d(groups=)`, converting
@@ -265,12 +268,115 @@ def lane_unpack_codes(packed_lp, shape, groups: int, g_b: int,
 # ---------------------------------------------------------------------------
 
 _I32_MAX = 2 ** 31 - 1
+_GRID_YZ_MAX = 65535
+# the dense kernel's tile: BM output pixels x BN output channels a block,
+# R walked in stages of BK reduction indices (csrc/log_conv2d.cu)
+BM, BN, BK = 128, 64, 32
+DEPTHWISE_THREADS = 256
+
+
+@functools.lru_cache(maxsize=16)
+def plane_table(cfg: LogQuantConfig, device: torch.device) -> torch.Tensor:
+    """The dense kernel's decode table: int32 ``[2^(bits+1)]``, entry ``c``
+    = ``bf16(W_e(c)) | bf16(W_o(c)) << 16`` (bit patterns).
+
+    A code decodes to ``s·2^e`` (even code) or ``s·√2·2^e`` (odd code, with
+    frac_bits 1), so ``dec(c) = W_e(c) + fp32(√2)·W_o(c)``: the even plane
+    holds ``s·2^e`` for an even code and +0 otherwise, the odd plane ``s·2^e``
+    for an odd code and +0 otherwise.  Every plane value is an exact bf16
+    number (e ≥ -126 for bits ≤ 7).  The zero code gives +0 in both.  Made
+    once per device."""
+    even, odd = [], []
+    for c in range(2 << cfg.bits):
+        biased = c & ((1 << cfg.bits) - 1)
+        code = biased - cfg.bias
+        v = (-1.0) ** (c >> cfg.bits) * 2.0 ** (code >> cfg.frac_bits)
+        if biased == cfg.zero_code:
+            v = 0.0
+        is_odd = cfg.frac_bits == 1 and code & 1
+        even.append(0.0 if is_odd else v)
+        odd.append(v if is_odd else 0.0)
+
+    def bits16(v):
+        return torch.tensor(v).to(torch.bfloat16).view(torch.int16).to(
+            torch.int64) & 0xFFFF
+
+    entry = bits16(even) | (bits16(odd) << 16)
+    entry = torch.where(entry >= 2 ** 31, entry - 2 ** 32, entry)
+    return entry.to(torch.int32).to(device)
+
+
+def log_conv2d_geometry(B: int, H: int, W: int, C: int, K: int, Cout: int,
+                        stride: int = 1, padding="SAME", groups: int = 1,
+                        n_sm: int = 132) -> dict:
+    """The launch shape of the CUDA kernel for one conv on a card of
+    ``n_sm`` SMs.
+
+    Depthwise (``C // groups == 1``): one thread per output value.  Dense:
+    an implicit GEMM, M = B·Ho·Wo pixels by N = Cout // groups channels a
+    group, R = K·K·cin_g reduction indices in ``stages`` of ``BK``; a block
+    owns a ``BM x BN`` tile of one group and one share of
+    ``stages_per_split`` stages.  Where the tiles alone leave SMs idle the
+    shares bring the launch near two blocks per SM, and at least one block
+    per SM where R allows it: ``splits`` shares cover the stages exactly and
+    none is empty.  ``load`` names how x reaches shared memory: ``cp.async``
+    (cin_g % 16 == 0, each 16-index chunk lies in one tap) or ``gather``.
+    → dict with ``path``, ``load``, ``bm``, ``bn``, ``bk``, ``m_tiles``,
+    ``n_tiles``, ``tiles``, ``stages``, ``splits``, ``stages_per_split``
+    and ``blocks``."""
+    pads = normalize_padding(padding, K, stride, H, W)
+    Ho, Wo = _out_size(H, K, stride, pads[0]), _out_size(W, K, stride, pads[1])
+    if min(B, Ho, Wo, C, Cout, K, groups) < 1 or C % groups or Cout % groups:
+        raise ValueError(f"no conv: B={B} H={H} W={W} C={C} K={K} "
+                         f"Cout={Cout} stride={stride} groups={groups}")
+    cin_g, cout_g, M = C // groups, Cout // groups, B * Ho * Wo
+    if cin_g == 1:
+        blocks = -(-M * Cout // DEPTHWISE_THREADS)
+        return {"path": "depthwise", "load": "gather", "bm": None,
+                "bn": None, "bk": None, "m_tiles": None, "n_tiles": None,
+                "tiles": blocks, "stages": 1, "splits": 1,
+                "stages_per_split": 1, "blocks": blocks}
+    m_tiles, n_tiles = -(-M // BM), -(-cout_g // BN)
+    tiles = m_tiles * n_tiles * groups
+    stages = -(-K * K * cin_g // BK)
+    want = min(stages, max(1, round(2 * n_sm / tiles)))
+    while True:
+        sps = -(-stages // want)
+        splits = -(-stages // sps)
+        if tiles * splits >= n_sm or splits == stages:
+            break
+        want += 1
+    return {"path": "dense", "load": "cp.async" if cin_g % 16 == 0
+            else "gather", "bm": BM, "bn": BN, "bk": BK, "m_tiles": m_tiles,
+            "n_tiles": n_tiles, "tiles": tiles, "stages": stages,
+            "splits": splits, "stages_per_split": sps,
+            "blocks": tiles * splits}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per device: one zeroed int32 ticket per output tile of a split launch, for
+# both split-K kernels (log_conv2d, log_matmul); each launch leaves the
+# tickets it used at zero again, so launches that share a device run one
+# after another on one stream, as the port's callers do
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def split_tickets(device: torch.device, tiles: int) -> torch.Tensor:
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device.index] = buf
+    return buf
 
 
 def _kernel_fn():
     fn = _build.load("log_conv2d").log_conv2d_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 19
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 21
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -285,7 +391,7 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
     natural HWIO [K, K, C//groups, Cout] or, with ``lane=(g_b, cin_lane)``,
     the lane-packed [n_sb, K*K, g_b*cin_lane, Cout//groups] that
     `lane_pack_codes` makes, read as stored.  scale: scalar or
-    per-output-channel.
+    per-output-channel.  The launch shape comes from `log_conv2d_geometry`.
 
     A CUDA tensor launches the kernel (and adds one to
     ``log_conv2d_fused.launches``) or raises; a CPU tensor runs the plain
@@ -338,13 +444,28 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
         raise ValueError(f"empty output for x {tuple(x.shape)}, K={K}, "
                          f"stride={stride}, pads={pads}")
     y = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=x.device)
-    if max(x.numel(), y.numel(), packed.numel()) > _I32_MAX or groups > 65535:
+    if max(x.numel(), y.numel(), packed.numel()) > _I32_MAX:
         raise ValueError("tensor too large for the kernel's 32-bit indexing")
+    geo = log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
+                              sm_count(x.device.index))
+    if geo["path"] == "dense" and (
+            geo["m_tiles"] > _GRID_YZ_MAX
+            or groups * geo["splits"] > _GRID_YZ_MAX):
+        raise ValueError("shape too large for the kernel's launch grid")
+    part = tickets = None
+    if geo["splits"] > 1:
+        part = torch.empty((geo["splits"], B * Ho * Wo, Cout),
+                           dtype=torch.float32, device=x.device)
+        tickets = split_tickets(x.device, geo["tiles"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                       y.data_ptr(), B, H, W, C, Ho, Wo, Cout, K, stride,
-                       pads[0][0], pads[1][0], groups, g_b, w_sb, w_gl, w_tap,
-                       w_in, cfg.bits, cfg.frac_bits, stream)
+                       plane_table(cfg, x.device).data_ptr(), y.data_ptr(),
+                       part.data_ptr() if part is not None else None,
+                       tickets.data_ptr() if tickets is not None else None,
+                       B, H, W, C, Ho, Wo, Cout, K, stride, pads[0][0],
+                       pads[1][0], groups, g_b, w_sb, w_gl, w_tap, w_in,
+                       cfg.bits, cfg.frac_bits, geo["stages_per_split"],
+                       geo["splits"], stream)
     if err != 0:
         raise RuntimeError(f"log_conv2d CUDA launch failed: cudaError {err}")
     log_conv2d_fused.launches += 1

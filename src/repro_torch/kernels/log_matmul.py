@@ -15,13 +15,12 @@ raises.  `kernels/ops.log_matmul` dispatches between the two.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.core.logquant import LogQuantConfig
 from . import _build
-from .log_conv2d import DEFAULT_CFG, _scale_vector
+from .log_conv2d import DEFAULT_CFG, _scale_vector, sm_count, split_tickets
 from .ref import ref_log_matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,26 +54,6 @@ def log_matmul_geometry(M: int, K: int, N: int, n_sm: int = 132) -> dict:
     return {"bm": bm, "bn": BN, "m_tiles": m_tiles, "n_tiles": n_tiles,
             "splits": splits, "k_per_split": k_per_split,
             "blocks": m_tiles * n_tiles * splits}
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-# per device: one zeroed int32 ticket per (row, column) tile of a split
-# product; each launch leaves the tickets it used at zero again, so launches
-# that share a device run one after another on one stream, as the port's
-# callers do
-_TICKETS: dict[int, torch.Tensor] = {}
-
-
-def _tickets(device: torch.device, tiles: int) -> torch.Tensor:
-    buf = _TICKETS.get(device.index)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _TICKETS[device.index] = buf
-    return buf
 
 
 def _kernel_fn():
@@ -132,7 +111,7 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
                          f"{tuple(packed.shape)}")
     if max(M, N) > _I32_MAX or K > _I32_MAX - 4 * STAGE_ROWS[4]:
         raise ValueError("shape too large for the kernel's indices")
-    geo = log_matmul_geometry(M, K, N, _sm_count(x.device.index))
+    geo = log_matmul_geometry(M, K, N, sm_count(x.device.index))
     if geo["m_tiles"] > _GRID_YZ_MAX or geo["splits"] > _GRID_YZ_MAX:
         raise ValueError("shape too large for the kernel's launch grid")
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -140,7 +119,7 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
     if geo["splits"] > 1:
         part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
                            device=x.device)
-        tickets = _tickets(x.device, geo["m_tiles"] * geo["n_tiles"])
+        tickets = split_tickets(x.device, geo["m_tiles"] * geo["n_tiles"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                        y.data_ptr(), part.data_ptr() if part is not None

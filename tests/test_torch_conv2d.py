@@ -173,6 +173,132 @@ def test_decode_codes_is_exact_eq8():
         rtol=2e-6, atol=0)
 
 
+@pytest.mark.parametrize("bits,frac_bits", [(6, 1), (5, 1), (7, 1), (6, 0),
+                                            (7, 0)])
+def test_plane_table_is_the_exact_decode(bits, frac_bits):
+    """The conv kernel's table: for every code, the even plane equals
+    `decode_codes` bit for bit where the code has no √2 factor, fp32(√2) ×
+    the odd plane equals it bit for bit where it has one, the other plane
+    is +0, and the zero code gives +0 in both."""
+    cfg = tlc.LogQuantConfig(bits=bits, frac_bits=frac_bits)
+    n = 2 << bits
+    tab = tlc.plane_table(cfg, torch.device("cpu"))
+    assert tab.dtype == torch.int32 and tuple(tab.shape) == (n,)
+
+    def plane(shift):
+        return ((tab >> shift) & 0xFFFF).to(torch.int16).view(
+            torch.bfloat16).float()
+
+    even, odd = plane(0), plane(16)
+    codes = torch.arange(n, dtype=torch.int64)
+    want = tlc.decode_codes(codes, cfg)
+    sqrt2 = torch.tensor(2.0 ** 0.5, dtype=torch.float32)
+    code = (codes & cfg.bias) - cfg.bias
+    has_sqrt2 = (code & 1).bool() & (frac_bits == 1)
+    bits_of = lambda t: t.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits_of(torch.where(has_sqrt2, sqrt2 * odd, even)),
+                       bits_of(want))
+    assert torch.equal(bits_of(torch.where(has_sqrt2, even, odd)),
+                       torch.zeros(n, dtype=torch.int32))
+    zero = (codes & cfg.bias) == cfg.zero_code
+    assert int(zero.sum()) == 2
+    assert torch.equal(tab[zero], torch.zeros(2, dtype=torch.int32))
+    # every plane value is a power of two or zero: exact in bf16
+    mags = torch.cat([even, odd]).abs()
+    nz = mags[mags != 0]
+    assert torch.equal(torch.exp2(torch.log2(nz).round()), nz)
+
+
+def _geometry_cases():
+    from repro_torch.models.cnn import zoo_conv_shapes
+    recs = [(r["B"], r["H"], r["W"], r["C"], r["K"], r["Cout"], r["stride"],
+             r["padding"], r["groups"])
+            for b in (1, 8) for r in zoo_conv_shapes(batch=b)]
+    return recs + SHAPES + LANE_SHAPES
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+def test_conv_geometry_covers_r_and_fills_the_card(n_sm):
+    """`log_conv2d_geometry` at every zoo conv shape (batch 1 and 8) and the
+    sweep shapes: the shares cover the stages of R exactly, none is empty,
+    and the launch has at least one block per SM wherever R allows it."""
+    seen_split = False
+    for (B, H, W, C, K, P, stride, padding, groups) in _geometry_cases():
+        g = tlc.log_conv2d_geometry(B, H, W, C, K, P, stride, padding,
+                                    groups, n_sm=n_sm)
+        cin_g = C // groups
+        if cin_g == 1:
+            assert g["path"] == "depthwise" and g["splits"] == 1
+            continue
+        assert g["path"] == "dense"
+        assert g["load"] == ("cp.async" if cin_g % 16 == 0 else "gather")
+        pads = tlc.normalize_padding(padding, K, stride, H, W)
+        M = B * tlc._out_size(H, K, stride, pads[0]) * \
+            tlc._out_size(W, K, stride, pads[1])
+        assert g["m_tiles"] == -(-M // tlc.BM)
+        assert g["n_tiles"] == -(-(P // groups) // tlc.BN)
+        assert g["tiles"] == g["m_tiles"] * g["n_tiles"] * groups
+        assert g["stages"] == -(-K * K * cin_g // tlc.BK)
+        sps, splits = g["stages_per_split"], g["splits"]
+        assert (splits - 1) * sps < g["stages"] <= splits * sps
+        assert g["blocks"] == g["tiles"] * splits
+        assert g["blocks"] >= n_sm or splits == g["stages"]
+        seen_split |= splits > 1
+    assert seen_split
+    # ResNet-34's 7x7x512 -> 512 layer at batch 8: 32 tiles, 144 stages
+    g = tlc.log_conv2d_geometry(8, 7, 7, 512, 3, 512, n_sm=n_sm)
+    assert g["tiles"] == 32 and g["blocks"] >= 2 * n_sm * 0.9
+    with pytest.raises(ValueError):
+        tlc.log_conv2d_geometry(1, 4, 4, 6, 3, 4, groups=4)
+
+
+def _emulate_kernel(x, packed, scale, *, stride, padding, groups):
+    """The dense kernel's arithmetic in plain torch: x split into bf16 hi
+    and lo, the codes into the two bf16 planes of `plane_table`, fp32 sums
+    of the four products, then ``scale · (acc_e + fp32(√2) · acc_o)``."""
+    cfg = tlc.DEFAULT_CFG
+    B, H, W, C, K, Cout = tlc._check_shapes(x, packed, groups)
+    pads = tlc.normalize_padding(padding, K, stride, H, W)
+    tab = tlc.plane_table(cfg, x.device)
+    entry = tab[packed.to(torch.int64) & ((2 << cfg.bits) - 1)]
+    w_e, w_o = (((entry >> s) & 0xFFFF).to(torch.int16).view(torch.bfloat16)
+                .float() for s in (0, 16))
+    x_hi = x.to(torch.bfloat16).float()
+    x_lo = (x - x_hi).to(torch.bfloat16).float()
+
+    def conv(a, w):
+        return tlc.conv_nhwc(a, w, stride=stride, pads=pads, groups=groups)
+
+    acc_e = conv(x_hi, w_e) + conv(x_lo, w_e)
+    acc_o = conv(x_hi, w_o) + conv(x_lo, w_o)
+    sqrt2 = torch.tensor(2.0 ** 0.5, dtype=torch.float32)
+    return tlc._scale_vector(scale, Cout, x.device) * (acc_e + sqrt2 * acc_o)
+
+
+@pytest.mark.parametrize("B,H,W,C,K,P,stride,padding,groups",
+                         SHAPES + LANE_SHAPES)
+def test_kernel_arithmetic_matches_jax_blockwise(B, H, W, C, K, P, stride,
+                                                 padding, groups):
+    """Two exact planes and a two-piece bf16 split of x, summed in fp32,
+    stay within the per-conv tolerance of JAX's `log_conv2d_blockwise`."""
+    x, w = _inputs(10, B, H, W, C, K, P, groups)
+    x = x * np.float32(3.0) + np.float32(0.1)   # mantissas bf16 cannot hold
+    kw = dict(stride=stride, padding=padding, groups=groups)
+    qj = jquantize(jnp.asarray(w))
+    qt = tquantize(torch.from_numpy(w))
+    y_j = np.asarray(jlc.log_conv2d_blockwise(jnp.asarray(x), qj.packed,
+                                              qj.scale, **kw))
+    y = _emulate_kernel(torch.from_numpy(x), qt.packed, qt.scale, **kw)
+    tol = 1e-4 * float(np.abs(y_j).max() + 1)
+    assert tuple(y.shape) == y_j.shape
+    err = float(np.abs(y.numpy() - y_j).max())
+    assert err <= tol, (err, tol)
+    # the split is what holds it: bf16 x alone misses the tolerance
+    x_hi = torch.from_numpy(x).to(torch.bfloat16).float()
+    y_hi = tlc.log_conv2d_blockwise(x_hi, qt.packed, qt.scale, **kw)
+    assert float(np.abs(y_hi.numpy() - y_j).max()) > tol
+
+
 def test_resolve_impl_follows_the_tensor_device():
     assert tops.resolve_impl("conv2d", "auto", torch.device("cpu")) == \
         "blockwise"
@@ -282,19 +408,49 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# R on either side of a share boundary of `log_conv2d_geometry` (one tile:
+# R = 8432 gives 264 shares of one stage of 32, R = 8464 gives 133 shares of
+# two), a gathered R, a half stage in the last share, grouped and ragged-N
+SPLIT_SHAPES = [
+    (1, 4, 4, 8432, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 8464, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 8440, 1, 64, 1, "VALID", 1),
+    (1, 4, 4, 48, 1, 64, 1, "VALID", 1),
+    (1, 6, 6, 64, 3, 64, 1, "SAME", 2),
+    (2, 5, 5, 96, 3, 72, 2, "SAME", 1),
+]
+
+
+def test_split_shapes_cross_share_boundaries():
+    """The split shapes the card test runs do split R, on both sides of a
+    share boundary, on both load paths."""
+    geos = [tlc.log_conv2d_geometry(B, H, W, C, K, P, s, pad, g)
+            for (B, H, W, C, K, P, s, pad, g) in SPLIT_SHAPES]
+    assert all(g["splits"] > 1 for g in geos)
+    assert [g["stages_per_split"] for g in geos[:2]] == [1, 2]
+    assert {g["load"] for g in geos} == {"cp.async", "gather"}
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_versions(cuda_device):
     """The hand-written kernel against `log_conv2d_ref` and
     `log_conv2d_blockwise` on the card, in natural and lane-packed layouts,
-    plus the bit-exact decode of all 128 codes."""
+    split-K included; each call made twice gives the same bits.  Plus the
+    bit-exact decode of all 128 codes on the depthwise path and both dense
+    load paths."""
     dev = cuda_device
     codes = torch.arange(128, dtype=torch.int8, device=dev)
-    y = tlc.log_conv2d_fused(torch.ones((1, 1, 1, 1), device=dev),
-                             codes.reshape(1, 1, 1, 128),
-                             torch.ones(128, device=dev), padding="VALID")
-    assert torch.equal(y.reshape(-1).view(torch.int32),
-                       tlc.decode_codes(codes).view(torch.int32))
-    for (B, H, W, C, K, P, stride, padding, groups) in SHAPES + LANE_SHAPES:
+    want = tlc.decode_codes(codes).view(torch.int32)
+    ones = torch.ones(128, device=dev)
+    for cin in (1, 2, 16):   # depthwise, dense gather, dense cp.async
+        x = torch.zeros((1, 1, 1, cin), device=dev)
+        x[..., cin - 1] = 1.0
+        w = torch.stack([codes.roll(j) for j in range(cin - 1, -1, -1)])
+        y = tlc.log_conv2d_fused(x, w.reshape(1, 1, cin, 128).contiguous(),
+                                 ones, padding="VALID")
+        assert torch.equal(y.reshape(-1).view(torch.int32), want), cin
+    for (B, H, W, C, K, P, stride, padding, groups) in (
+            SHAPES + LANE_SHAPES + SPLIT_SHAPES):
         x, w = _inputs(9, B, H, W, C, K, P, groups)
         xt = torch.from_numpy(x).to(dev)
         qt = tquantize(torch.from_numpy(w).to(dev))
@@ -303,10 +459,13 @@ def test_cuda_kernel_matches_plain_versions(cuda_device):
         tol = 1e-4 * (float(y_ref.abs().max()) + 1)
         before = tlc.log_conv2d_fused.launches
         outs = [tlc.log_conv2d_fused(xt, qt.packed, qt.scale, **kw),
+                tlc.log_conv2d_fused(xt, qt.packed, qt.scale, **kw),
                 tops.conv2d(xt, _lane_qt(qt, groups), impl="cuda", **kw)
                 if groups > 1 else None]
         torch.cuda.synchronize()
-        assert tlc.log_conv2d_fused.launches == before + 1 + (groups > 1)
+        assert tlc.log_conv2d_fused.launches == before + 2 + (groups > 1)
+        assert torch.equal(outs[0].view(torch.int32),
+                           outs[1].view(torch.int32))
         y_bw = tlc.log_conv2d_blockwise(xt, qt.packed, qt.scale, **kw)
         for y in filter(lambda t: t is not None, outs):
             assert float((y - y_ref).abs().max()) <= tol
