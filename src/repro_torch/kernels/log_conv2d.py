@@ -359,7 +359,8 @@ def sm_count(index: int) -> int:
 
 
 # per device: one zeroed int32 ticket per output tile of a split launch, for
-# both split-K kernels (log_conv2d, log_matmul); each launch leaves the
+# the split-K kernels (log_conv2d, log_matmul) and the split-KV variant of
+# flash_attention (a ticket a row block); each launch leaves the
 # tickets it used at zero again, so launches that share a device run one
 # after another on one stream, as the port's callers do
 _TICKETS: dict[int, torch.Tensor] = {}

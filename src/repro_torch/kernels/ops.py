@@ -155,7 +155,7 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
     """Math spec for `attention`'s blockwise version.  The CUDA kernel's
-    tiles are fixed (`flash_attention.BLOCK_Q` / `BLOCK_K`)."""
+    tiles come from `flash_attention.flash_attention_geometry`."""
     block_k: int | None = None       # blockwise kv chunk (default 1024)
     acc_dtype: Any = torch.float32   # blockwise score/accum math dtype
     gqa_broadcast: bool = False      # blockwise: einsum-broadcast GQA
