@@ -17,11 +17,13 @@ goes wrong:
      and the 16-byte cp.async copies (Cin = 16, x one-hot);
   4. the kernel against `log_conv2d_ref` and `log_conv2d_blockwise` on the
      conv sweeps of the tests, on shapes whose reduction falls on either
-     side of a share boundary of the split-K geometry (`SPLIT_SHAPES`) and
-     on the 61 conv shapes of the four paper CNNs at batch 1 (tolerance
+     side of a share boundary of the split-K geometry (`SPLIT_SHAPES`), on
+     depthwise shapes at the edges of the depthwise tiles (`DW_SHAPES`, and
+     one with x 4 bytes past a 16-byte boundary, which the kernel gathers)
+     and on the 61 conv shapes of the four paper CNNs at batch 1 (tolerance
      1e-4 * (max|y_ref| + 1)); every case is run twice and must give the
-     same bits, and the geometry (tiles, shares, blocks) of each shape is
-     printed;
+     same bits, and the geometry of each depthwise and split shape (tile,
+     blocks and load; tiles, shares and blocks) is printed;
   5. the slice: VGG-16, MobileNet v1, ResNet-34 and SqueezeNet at full
      width, 224 px, 1000 classes, batch 8, random weights from a seed,
      packed by `quantize_cnn_params(conv_layout="lane_packed")` and run with
@@ -38,7 +40,11 @@ goes wrong:
      x matmul) and decode + `F.conv2d` by CUDA events; TFLOP/s, blocks,
      the bound max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s), the bf16
      tensor-core peak the dense path runs on, and the fp32 bound
-     (FLOP / 67 TFLOP/s) beside it;
+     (FLOP / 67 TFLOP/s) beside it.  Per net, the dense and the depthwise
+     convs are also summed apart; the depthwise convs (whose x and y fit the
+     50 MB L2) are read a second time with a cold L2, kernel and library:
+     256 MB are written before each call, and those fills are left out of
+     the sum;
   7. the log_matmul kernel against `ref_log_matmul`: the decode table bit
      for bit through a 1 x 128 product, the shapes of
      `tests/test_kernels_log_matmul.py`, ragged shapes, K on either side
@@ -104,9 +110,12 @@ goes wrong:
      ms per prompt length (exact length: a pad token would enter the
      state), decode-step ms, tokens/s and one profiled decode step are
      printed;
- 13. wkv6 times: kernel, plain versions (`ref_wkv6`, `wkv6_chunked`) and
-     the byte bound, summed over one decode step's 24 calls, over a
-     15-token prefill's 24 calls, and for one T=2048 call.  No single
+ 13. wkv6 times: kernel (`torch.profiler` device time, with the CUDA-event
+     time beside it), plain versions (`ref_wkv6`, `wkv6_chunked`, CUDA
+     events) and the byte bound, summed over one decode step's 24 calls,
+     over a 15-token prefill's 24 calls, and for one T=2048 call (where a
+     profiler window missed at most 2 % of the kernels, as in 10, their
+     mean stands in for the missing ones).  No single
      PyTorch call computes the recurrence, so there is no library time.
      Then log_matmul over rwkv6-1.6b's 192 products at M = 4 and 16, read
      as in 10.
@@ -193,6 +202,25 @@ SPLIT_SHAPES = [
     (1, 4, 4, 48, 1, 64, 1, "VALID", 1),
     (1, 6, 6, 64, 3, 64, 1, "SAME", 2),
     (2, 5, 5, 96, 3, 72, 2, "SAME", 1),
+]
+
+# depthwise shapes at the edges of the depthwise kernel's tiles
+# (tests/test_torch_conv2d.py): H, W and C not multiples of a tile, stride 2
+# with odd H and asymmetric SAME pads, K = 5, channel multiplier 2, batch 3,
+# and the gather load on tiles of several channel quads
+DW_SHAPES = [
+    (1, 19, 21, 8, 3, 8, 1, "SAME", 8),
+    (3, 11, 13, 10, 3, 10, 1, "SAME", 10),
+    (1, 15, 16, 12, 3, 12, 2, "SAME", 12),
+    (3, 14, 9, 36, 3, 36, 2, "SAME", 36),
+    (2, 12, 11, 8, 5, 8, 1, "SAME", 8),
+    (1, 13, 14, 8, 5, 8, 2, "SAME", 8),
+    (1, 10, 9, 4, 3, 8, 1, "SAME", 4),
+    (3, 9, 10, 6, 3, 12, 2, "SAME", 6),
+    (1, 37, 41, 40, 3, 40, 1, "SAME", 40),
+    (2, 9, 9, 16, 3, 16, 2, "VALID", 16),
+    (2, 28, 30, 24, 3, 48, 1, "SAME", 24),
+    (4, 40, 36, 30, 3, 30, 2, "SAME", 30),
 ]
 
 
@@ -336,15 +364,39 @@ def phase_decode(dev) -> None:
             fail(f"{bad} decoded codes differ from decode_codes ({path})")
 
 
-def check_conv(r: dict, rng, dev, label: str) -> dict:
+def depthwise_load(fn, what: str) -> str:
+    """The load the depthwise kernel took in one call of ``fn``, read from
+    the template argument in its name (``..._kernel<K, S, ASYNC>``):
+    ``cp.async`` or ``gather``."""
+    for attempt in range(WINDOWS):
+        if attempt:
+            time.sleep(0.5)
+        names = [n for n, _ in device_kernels(fn, opener=True)
+                 if "log_conv2d_depthwise_kernel" in n]
+        if len(names) == 1:
+            args = names[0].split("log_conv2d_depthwise_kernel<")[1]
+            flag = args.split(">")[0].split(",")[-1].strip()
+            if flag in ("true", "false"):
+                return "cp.async" if flag == "true" else "gather"
+            fail(f"{what}: cannot read the load from {names[0]!r}")
+    fail(f"{what}: the profiler saw no single depthwise kernel in "
+         f"{WINDOWS} windows")
+
+
+def check_conv(r: dict, rng, dev, label: str, offset: bool = False) -> dict:
     """Kernel (HWIO and, where the group layout packs, lane-packed codes)
     against ref and blockwise on one shape; each kernel call is made twice
-    and must give the same bits."""
+    and must give the same bits.  With ``offset`` x lies 4 bytes past a
+    16-byte boundary (the kernel then gathers x)."""
     from repro_torch.kernels.log_conv2d import (log_conv2d_blockwise,
                                                 log_conv2d_fused,
                                                 log_conv2d_geometry,
                                                 log_conv2d_ref)
     x, qt, hwio, codes, lane = make_conv(r, rng, dev)
+    if offset:
+        x = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+        if x.data_ptr() % 16 != 4:
+            fail(f"{label}: x is not 4 bytes past a 16-byte boundary")
     kw = dict(stride=r["stride"], padding=r["padding"], groups=r["groups"])
     y_ref = log_conv2d_ref(x, hwio, qt.scale, **kw)
     y_bw = log_conv2d_blockwise(x, hwio, qt.scale, **kw)
@@ -361,9 +413,19 @@ def check_conv(r: dict, rng, dev, label: str) -> dict:
                               n_sm=torch.cuda.get_device_properties(dev)
                               .multi_processor_count)
     res = {"shape": label, "tol": tol,
-           "geometry": {k: geo[k] for k in ("path", "load", "tiles",
+           "geometry": {k: geo[k] for k in ("path", "load", "tile",
+                                            "threads", "smem_bytes", "tiles",
                                             "splits", "stages_per_split",
-                                            "blocks")}}
+                                            "blocks") if k in geo}}
+    if geo["path"] == "depthwise":
+        # the kernel picks its load itself; it must be the geometry's, and
+        # the gather where x lies off a 16-byte boundary
+        ran = depthwise_load(lambda: log_conv2d_fused(x, hwio, qt.scale, **kw),
+                             label)
+        if ran != ("gather" if offset else geo["load"]):
+            fail(f"{label}: the depthwise kernel took the {ran} load, "
+                 f"geometry says {geo['load']}, x offset {offset}")
+        res["geometry"]["load"] = ran
     for name, (y, again) in outs.items():
         if y.shape != y_ref.shape or not bool(torch.isfinite(y).all()):
             fail(f"{label} {name}: shape {tuple(y.shape)} or non-finite")
@@ -392,12 +454,18 @@ def phase_sweeps(dev) -> tuple[list, float]:
     from repro_torch.models.cnn import zoo_conv_shapes
     rng = np.random.default_rng(SEED)
     rows = [check_conv(sweep_record(s), rng, dev, f"sweep {s}")
-            for s in SHAPES + LANE_SHAPES + SPLIT_SHAPES]
+            for s in SHAPES + LANE_SHAPES + SPLIT_SHAPES + DW_SHAPES]
+    # the depthwise gather where C % 4 == 0: x off a 16-byte boundary
+    s_off = DW_SHAPES[0]
+    rows.append(check_conv(sweep_record(s_off), rng, dev,
+                           f"sweep {s_off}, x 4 bytes off", offset=True))
     print(f"sweeps: {len(rows)} shapes within tol, each bit-identical over "
           f"two calls, max |kernel - ref| "
           f"{max(r['hwio_vs_ref'] for r in rows):.3e}")
-    for r in rows[len(SHAPES) + len(LANE_SHAPES):]:
-        print(f"  {r['shape']}: {r['geometry']}")
+    for r in rows:
+        if r["geometry"]["path"] == "depthwise" or \
+                r["geometry"]["splits"] > 1:
+            print(f"  {r['shape']}: {r['geometry']}")
     zoo = zoo_conv_shapes(batch=1, img=IMG, n_classes=N_CLASSES)
     if len(zoo) != 61:
         fail(f"expected 61 zoo conv shapes, traced {len(zoo)}")
@@ -405,6 +473,12 @@ def phase_sweeps(dev) -> tuple[list, float]:
              for r in zoo]
     for r in zrows:
         g = r["geometry"]
+        if g["path"] == "depthwise":
+            print(f"  {r['shape']}: depthwise ({g['load']}), tile "
+                  f"{g['tile']} (rows, columns, channels), {g['threads']} "
+                  f"threads, {g['smem_bytes']} B shared, {g['blocks']} "
+                  f"blocks")
+            continue
         print(f"  {r['shape']}: {g['path']} ({g['load']}), {g['tiles']} "
               f"tiles x {g['splits']} shares of {g['stages_per_split']} "
               f"stages = {g['blocks']} blocks")
@@ -588,6 +662,24 @@ def _device_ms(fn, what: str, reps: int = 5, match: str | None = None,
     return sum(kern) / reps, len(kern) / reps
 
 
+FLUSH_BYTES = 256 << 20   # written before each cold-L2 call: 5x the L2
+
+
+def _cold_device_ms(fn, what: str, flush_buf, expect: int,
+                    reps: int = 5) -> float:
+    """Device ms a call of ``fn`` with a cold L2: ``flush_buf`` (at least
+    ``FLUSH_BYTES``) is filled before each call, and the sum leaves out the
+    fill (and any memset) kernels; ``expect`` kernels a call must be
+    seen."""
+    def cold():
+        flush_buf.fill_(1)
+        return fn()
+    kern = complete_window(
+        cold, what, reps, lambda name: "FillFunctor" not in name
+        and "Memset" not in name, expect)
+    return sum(kern) / reps
+
+
 def phase_conv_times(dev) -> tuple[dict, list]:
     """Per-conv times at batch 8 over the 61 distinct conv shapes of the
     four nets.  Kernel and library (`F.conv2d` on weights decoded in
@@ -595,7 +687,10 @@ def phase_conv_times(dev) -> tuple[dict, list]:
     the kernels of a call in a `torch.profiler` window; the CUDA-event mean
     of a loop of calls stands beside them.  Bound: max(bytes / 3.35 TB/s,
     FLOP / 989 TFLOP/s), the bf16 tensor-core peak the dense path runs on;
-    the fp32 bound (FLOP / 67 TFLOP/s) is kept beside it."""
+    the fp32 bound (FLOP / 67 TFLOP/s) is kept beside it.  Depthwise convs
+    are also read with a cold L2 (`_cold_device_ms`), kernel and library:
+    their x and y fit the 50 MB L2, so warm repetitions can read it from
+    there."""
     from repro_torch.kernels.log_conv2d import (conv_nhwc, decode_codes,
                                                 log_conv2d_blockwise,
                                                 log_conv2d_fused,
@@ -606,6 +701,7 @@ def phase_conv_times(dev) -> tuple[dict, list]:
         zoo_conv_shapes
     rng = np.random.default_rng(SEED + 2)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     times = {}
     with torch.no_grad():
         for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
@@ -647,6 +743,18 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             t["bound_by"] = ("operations" if t["ops_ms"] >= t["bytes_ms"]
                              else "bytes")
             t["tflops"] = flops / ms / 1e9
+            msg = ""
+            if geo["path"] == "depthwise":
+                t["tile"], t["load"] = geo["tile"], geo["load"]
+                t["cold_ms"] = _cold_device_ms(
+                    kernel, f"kernel cold {sig(r)}", flush_buf,
+                    round(n_kern))
+                t["cold_library_ms"] = _cold_device_ms(
+                    library, f"library cold {sig(r)}", flush_buf,
+                    round(n_lib))
+                msg = (f"; tile {geo['tile']}, cold L2: kernel "
+                       f"{t['cold_ms']:.4f}, library "
+                       f"{t['cold_library_ms']:.4f}")
             times[sig(r)] = t
             print(f"conv {'/'.join(sig(r))} ({','.join(r['nets'])}): kernel "
                   f"{ms:.4f} ms device ({t['tflops']:.1f} TFLOP/s, "
@@ -655,7 +763,8 @@ def phase_conv_times(dev) -> tuple[dict, list]:
                   f"({n_lib:.0f} kernels; events {t['library_event_ms']:.4f})"
                   f", decode + conv {t['decode_conv_ms']:.4f}, plain "
                   f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
-                  f"({t['bound_by']}), fp32 bound {t['fp32_bound_ms']:.4f}")
+                  f"({t['bound_by']}), fp32 bound {t['fp32_bound_ms']:.4f}"
+                  f"{msg}")
             del x, qt, hwio, codes, w
             torch.cuda.empty_cache()
     nets = []
@@ -672,6 +781,12 @@ def phase_conv_times(dev) -> tuple[dict, list]:
         tot["dense_library_ms"] = sum(
             times[sig(r)]["library_ms"] for r in recs
             if times[sig(r)]["path"] == "dense")
+        dw = [times[sig(r)] for r in recs
+              if times[sig(r)]["path"] == "depthwise"]
+        tot["depthwise_convs"] = len(dw)
+        for k in ("ms", "library_ms", "bound_ms", "cold_ms",
+                  "cold_library_ms"):
+            tot[f"depthwise_{k}"] = sum(t[k] for t in dw)
         nets.append(tot)
         print(f"convs {name:12s} x{len(recs)} at batch {BATCH}: kernel "
               f"{tot['ms']:.3f} ms device (events {tot['event_ms']:.3f}; "
@@ -683,6 +798,21 @@ def phase_conv_times(dev) -> tuple[dict, list]:
               f"ms, bound {tot['bound_ms']:.3f} ms (fp32 bound "
               f"{tot['fp32_bound_ms']:.3f}; {tot['gflop']:.1f} GFLOP, "
               f"{tot['gflop'] / tot['ms']:.2f} TFLOP/s)")
+        if dw:
+            bound = tot["depthwise_bound_ms"]
+            for k in ("ms", "library_ms", "cold_ms", "cold_library_ms"):
+                tot[f"depthwise_share_of_bound_{k}"] = \
+                    bound / tot[f"depthwise_{k}"]
+            print(f"  depthwise convs x{len(dw)}: kernel "
+                  f"{tot['depthwise_ms']:.4f} ms device, library "
+                  f"{tot['depthwise_library_ms']:.4f}; bytes bound "
+                  f"{bound:.4f} ms, share of bound "
+                  f"{tot['depthwise_share_of_bound_ms']:.3f} (library "
+                  f"{tot['depthwise_share_of_bound_library_ms']:.3f}); cold "
+                  f"L2: kernel {tot['depthwise_cold_ms']:.4f} ms, library "
+                  f"{tot['depthwise_cold_library_ms']:.4f}, share of bound "
+                  f"{tot['depthwise_share_of_bound_cold_ms']:.3f} (library "
+                  f"{tot['depthwise_share_of_bound_cold_library_ms']:.3f})")
     return times, nets
 
 
@@ -1539,8 +1669,21 @@ def phase_wkv6_times(dev, engine) -> dict:
                                             cfg.act_dtype, state=False)
             ins.append((r, k, v, lw, u, s[:b]))
         chunk = min(64, max(16, t))
-        tt = {"calls": len(ins),
-              "ms": time_ms(lambda: [wkv6_cuda(*a) for a in ins], reps),
+
+        def kernel():
+            return [wkv6_cuda(*a) for a in ins]
+        # as for log_matmul: where the profiler dropped an event (at most
+        # 2 % of them; a window loses one or two), the mean of those it saw
+        # stands in for it, so a window holds at least 50 kernels
+        n_win = max(5, -(-50 // len(ins)))
+        seen = complete_window(kernel, f"wkv6 {label}", n_win,
+                               lambda name: "wkv6_kernel" in name,
+                               expect=len(ins), min_share=0.98)
+        tt = {"calls": len(ins), "ms": sum(seen) / len(seen) * len(ins),
+              "time": "device time by torch.profiler; the others by CUDA "
+              "events",
+              "profiler_kernels_seen": f"{len(seen)} of {n_win * len(ins)}",
+              "event_ms": time_ms(kernel, reps),
               "plain_ms": time_ms(lambda: [ref_wkv6(*a) for a in ins],
                                   1 if t == 2048 else 2),
               "chunked_plain_ms": time_ms(lambda: [wkv6_chunked(
@@ -1555,7 +1698,8 @@ def phase_wkv6_times(dev, engine) -> dict:
         tt["bound_ms"] = max(tt["bytes_ms"], tt["ops_ms"])
         out[f"wkv6 {label}"] = tt
         print(f"wkv6 x{len(ins)} ({label}, B={b}, T={t}, H={H}, K=V={hs}, "
-              f"{cfg.act_dtype} r/k/v): kernel {tt['ms']:.4f} ms, plain "
+              f"{cfg.act_dtype} r/k/v): kernel {tt['ms']:.4f} ms device "
+              f"(events {tt['event_ms']:.4f}), plain "
               f"{tt['plain_ms']:.4f} ms (chunked {tt['chunked_plain_ms']:.4f}"
               f" ms), bound {tt['bound_ms']:.5f} ms ({tt['mbytes']:.2f} MB); "
               f"no single PyTorch call computes the recurrence")
@@ -1636,7 +1780,15 @@ def main() -> int:
             "tensor-core peak", event_ms=tot["event_ms"],
             library_event_ms=tot["library_event_ms"],
             fp32_bound_ms=tot["fp32_bound_ms"],
-            decode_conv_ms=tot["decode_conv_ms"]),
+            decode_conv_ms=tot["decode_conv_ms"],
+            dense_ms=sum(n["dense_ms"] for n in nets),
+            dense_library_ms=sum(n["dense_library_ms"] for n in nets),
+            depthwise_ms=sum(n["depthwise_ms"] for n in nets),
+            depthwise_library_ms=sum(n["depthwise_library_ms"] for n in nets),
+            depthwise_bound_ms=sum(n["depthwise_bound_ms"] for n in nets),
+            depthwise_cold_ms=sum(n["depthwise_cold_ms"] for n in nets),
+            depthwise_cold_library_ms=sum(n["depthwise_cold_library_ms"]
+                                          for n in nets)),
         row("log_matmul_cuda", "log_matmul.cu",
             "src/repro/kernels/log_matmul.py:95",
             lm["launches"]["log_matmul"] + rw["launches"]["log_matmul"],
@@ -1654,7 +1806,10 @@ def main() -> int:
                 "variant", "ms", "library_ms", "bound_ms", "bound_by")}
                 for k in lm_times if k.startswith("attention B=")}),
         row("wkv6_cuda", "wkv6.cu", "src/repro/kernels/wkv6.py:102",
-            rw["launches"]["wkv6"], wk_err, wk_times["wkv6 decode step"])]
+            rw["launches"]["wkv6"], wk_err, wk_times["wkv6 decode step"],
+            time=f"device time by torch.profiler over the {RWKV_ARCH} "
+            f"decode step's 24 calls; plain_ms and event_ms by CUDA events",
+            event_ms=wk_times["wkv6 decode step"]["event_ms"])]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1673,7 +1828,8 @@ def main() -> int:
           f"times are sums over one {LM_ARCH} decode step (126 and 18 calls; "
           f"log_matmul, attention and their libraries as torch.profiler "
           f"device time), wkv6 "
-          f"times over one {RWKV_ARCH} decode step (24 calls); log_matmul "
+          f"times over one {RWKV_ARCH} decode step (24 calls, device time); "
+          f"log_matmul "
           f"launches are those of both LM main "
           f"paths ({lm['launches']['log_matmul']} + "
           f"{rw['launches']['log_matmul']})")

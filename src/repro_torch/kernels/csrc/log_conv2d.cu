@@ -63,11 +63,27 @@
 //     conv is one launch;
 //   * occupancy: 256 threads at <= 128 registers and 105 KB of shared
 //     memory, two blocks an SM.
-// The depthwise path (cin_g == 1) is one thread per output value, K*K taps
-// of its own channel, fp32 FMAs with the exact decode below; it is bound by
-// memory traffic.
-// Left for later: wgmma and TMA, a persistent schedule, a shared-memory
-// tile for the depthwise path.
+// The depthwise path (cin_g == 1, MobileNet's 13 depthwise convs) does
+// 2*K*K FLOP per output value against 8 bytes of x and y, so it is bound by
+// bytes; the tensor cores have nothing to do there.  Its design:
+//   * a block owns a tile of th output rows x tw columns x ct channels of
+//     one image (`log_conv2d_geometry` picks it, so that every MobileNet
+//     conv at batch 8 launches at least one block an SM) and stages the
+//     input patch it needs, halo included, in shared memory once: 16-byte
+//     cp.async copies along the channels where C % 4 == 0 and cout_g == 1
+//     (NHWC keeps a pixel's channels contiguous), zero-filled outside the
+//     image; a bounds-checked gather otherwise (channel multiplier > 1:
+//     output channel o reads input channel o / cout_g).  So each x value
+//     leaves L2 about once a block, not once a tap;
+//   * the block's K*K*ct codes are decoded once, into shared memory;
+//   * a thread owns 4 channels (a float4) of 4 adjacent outputs along W;
+//     at K = 3 (compiled in for strides 1 and 2) one patch row in
+//     registers feeds every tap of that row;
+//   * per output, fp32 fmaf over (kh, kw) in row-major order from 0, then
+//     the scale: a zero-filled halo tap adds an exact +0, so the sums are
+//     those of a loop that skips it.  No atomics, the same bits every run.
+// Left for later: wgmma and TMA, a persistent schedule; for the depthwise
+// path, overlapping one tile's loads with the previous tile's math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +100,7 @@ struct Geom {
   int bits, frac_bits;
 };
 
-constexpr int NT = 256;   // threads per block (both paths)
+constexpr int NT = 256;   // threads per block of the dense path
 constexpr int BM = 128;   // output pixels per block
 constexpr int BN = 64;    // output channels per block (within one group)
 constexpr int BK = 32;    // reduction indices per stage
@@ -546,37 +562,201 @@ log_conv2d_dense_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(NT)
+// ---------------------------------------------------------------------------
+// the depthwise path (cin_g == 1)
+// ---------------------------------------------------------------------------
+
+constexpr int DW_PW = 4;             // outputs a thread, adjacent along W
+constexpr int DW_NT = 256;           // threads a block, at most
+constexpr int DW_SMEM_MAX = 232448;  // dynamic shared memory a block, at most
+
+// A block's tile: th output rows x tw output columns x ct output channels
+// of one image, with (ct / 4) * th * (tw / DW_PW) threads.  The grid is
+// B * tiles_h * tiles_w * tiles_c blocks, the channel tile fastest.  The
+// input patch the tile needs, halo included, is pr x pc pixels of ct
+// channels.
+struct DwTile {
+  int th, tw, ct, lq;             // lq = log2(ct / 4)
+  int tiles_h, tiles_w, tiles_c;
+  int pr, pc;
+  int vec_y;                      // 16-byte stores of y
+};
+
+__device__ __forceinline__ float4 fma4(float4 a, float4 b, float4 c) {
+  return make_float4(fmaf(a.x, b.x, c.x), fmaf(a.y, b.y, c.y),
+                     fmaf(a.z, b.z, c.z), fmaf(a.w, b.w, c.w));
+}
+
+// KK, SS: the kernel size and stride, compiled in for K = 3 at stride 1 or
+// 2 (every depthwise conv of MobileNet v1); 0 reads both from g.  ASYNC:
+// x reaches shared memory by 16-byte cp.async copies (C % 4 == 0,
+// cout_g == 1, x 16-byte aligned), else by a bounds-checked gather.
+template <int KK, int SS, bool ASYNC>
+__global__ void __launch_bounds__(DW_NT, 2)
 log_conv2d_depthwise_kernel(const float* __restrict__ x,
                             const int8_t* __restrict__ w,
                             const float* __restrict__ scale,
-                            float* __restrict__ y, Geom g) {
-  const long long total = (long long)g.B * g.Ho * g.Wo * g.Cout;
-  const long long idx = (long long)blockIdx.x * NT + threadIdx.x;
-  if (idx >= total) return;
-  const int o = (int)(idx % g.Cout);
-  const int m = (int)(idx / g.Cout);
-  const int bb = m / (g.Ho * g.Wo);
-  const int rem = m - bb * g.Ho * g.Wo;
-  const int ho = rem / g.Wo;
-  const int wo = rem - ho * g.Wo;
-  const int ch = o / g.cout_g;          // cin_g == 1: the group's channel
-  const int base = code_base(g, o);
-  const float* xb = x + (long long)bb * g.H * g.W * g.C + ch;
-  float acc = 0.0f;
-  for (int kh = 0; kh < g.K; ++kh) {
-    const int hi = ho * g.stride - g.pad_h + kh;
-    if (hi < 0 || hi >= g.H) continue;
-    for (int kw = 0; kw < g.K; ++kw) {
-      const int wi = wo * g.stride - g.pad_w + kw;
-      if (wi < 0 || wi >= g.W) continue;
-      const float d = decode(w[base + (kh * g.K + kw) * g.w_tap], g.bits,
-                             g.frac_bits);
-      acc = fmaf(xb[((long long)hi * g.W + wi) * g.C], d, acc);
+                            float* __restrict__ y, Geom g, DwTile t) {
+  extern __shared__ float4 smem4[];
+  float* patch = reinterpret_cast<float*>(smem4);  // [pr][pc][ct]
+  float* wd = patch + t.pr * t.pc * t.ct;          // [K*K][ct]
+  const int K = KK > 0 ? KK : g.K;
+  const int S = KK > 0 ? SS : g.stride;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nq = t.ct >> 2, lc = t.lq + 2;
+
+  int bid = blockIdx.x;
+  const int tc_i = bid % t.tiles_c;
+  bid /= t.tiles_c;
+  const int tw_i = bid % t.tiles_w;
+  bid /= t.tiles_w;
+  const int th_i = bid % t.tiles_h;
+  const int b = bid / t.tiles_h;
+  const int ho0 = th_i * t.th, wo0 = tw_i * t.tw, c0 = tc_i * t.ct;
+  const int h0 = ho0 * S - g.pad_h, w0 = wo0 * S - g.pad_w;
+  const float* xb = x + b * g.H * g.W * g.C;
+
+  // the patch, zero outside the image and past the last channel
+  if (ASYNC) {
+    // chunk i: channels c0 + 4 (i % nq) .. + 3 of patch pixel i / nq
+    const int n = t.pr * t.pc * nq;
+    for (int i = tid; i < n; i += nt) {
+      const int q = i & (nq - 1), pix = i >> t.lq;
+      const int r = pix / t.pc;
+      const int hi = h0 + r, wi = w0 + pix - r * t.pc;
+      const bool ok = hi >= 0 && hi < g.H && wi >= 0 && wi < g.W &&
+                      c0 + 4 * q < g.C;
+      cp_async16(patch + 4 * i,
+                 ok ? xb + (hi * g.W + wi) * g.C + c0 + 4 * q : x, ok);
+    }
+    cp_async_commit();
+  } else {
+    // value i: output channel c0 + i % ct of patch pixel i / ct, which
+    // reads input channel o / cout_g
+    const int n = t.pr * t.pc * t.ct;
+    for (int i = tid; i < n; i += nt) {
+      const int o = c0 + (i & (t.ct - 1)), pix = i >> lc;
+      const int r = pix / t.pc;
+      const int hi = h0 + r, wi = w0 + pix - r * t.pc;
+      patch[i] = hi >= 0 && hi < g.H && wi >= 0 && wi < g.W && o < g.Cout
+                     ? __ldg(xb + (hi * g.W + wi) * g.C + o / g.cout_g)
+                     : 0.0f;
     }
   }
-  y[idx] = acc * scale[o];
+  // the block's K*K*ct codes, decoded once
+  for (int i = tid; i < K * K * t.ct; i += nt) {
+    const int o = c0 + (i & (t.ct - 1)), tap = i >> lc;
+    wd[i] = o < g.Cout ? decode(__ldg(w + code_base(g, o) + tap * g.w_tap),
+                                g.bits, g.frac_bits)
+                       : 0.0f;
+  }
+  // this thread: channels o .. o + 3 of outputs (ho, wo .. wo + DW_PW - 1);
+  // the eight threads of a quarter warp read 128 contiguous bytes of a row
+  const int q = tid & (nq - 1);
+  const int ncg = t.tw / DW_PW;
+  const int rest = tid >> t.lq;
+  const int r = rest / ncg, cg = rest - r * ncg;
+  const int ho = ho0 + r, wo = wo0 + cg * DW_PW, o = c0 + 4 * q;
+  float s[4];   // loaded under the patch's copies
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    s[k] = o + k < g.Cout ? __ldg(scale + o + k) : 0.0f;
+  if (ASYNC) cp_async_wait<0>();
+  __syncthreads();
+  if (ho >= g.Ho || wo >= g.Wo || o >= g.Cout) return;
+  float4 acc[DW_PW];
+#pragma unroll
+  for (int j = 0; j < DW_PW; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // per output: fmaf over (kh, kw) in row-major order from 0; a halo tap
+  // holds +0 and adds exactly 0, as a skipped tap would
+  const float* p0 = patch + (r * S * t.pc + cg * DW_PW * S) * t.ct + 4 * q;
+  const float* w0p = wd + 4 * q;
+  if constexpr (KK > 0) {
+    // one patch row in registers feeds every tap of the row: at stride 1,
+    // DW_PW + K - 1 loads for DW_PW * K products
+    constexpr int NX = (DW_PW - 1) * SS + KK;
+#pragma unroll
+    for (int kh = 0; kh < KK; ++kh) {
+      const float* pr = p0 + kh * t.pc * t.ct;
+      float4 xr[NX];
+#pragma unroll
+      for (int u = 0; u < NX; ++u)
+        xr[u] = *reinterpret_cast<const float4*>(pr + u * t.ct);
+#pragma unroll
+      for (int kw = 0; kw < KK; ++kw) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(w0p + (kh * KK + kw) * t.ct);
+#pragma unroll
+        for (int j = 0; j < DW_PW; ++j)
+          acc[j] = fma4(xr[j * SS + kw], wv, acc[j]);
+      }
+    }
+  } else {
+    for (int kh = 0; kh < K; ++kh) {
+      const float* pr = p0 + kh * t.pc * t.ct;
+      for (int kw = 0; kw < K; ++kw) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(w0p + (kh * K + kw) * t.ct);
+#pragma unroll
+        for (int j = 0; j < DW_PW; ++j)
+          acc[j] = fma4(
+              *reinterpret_cast<const float4*>(pr + (j * S + kw) * t.ct), wv,
+              acc[j]);
+      }
+    }
+  }
+
+  float* yo = y + ((b * g.Ho + ho) * g.Wo + wo) * g.Cout + o;
+#pragma unroll
+  for (int j = 0; j < DW_PW; ++j) {
+    if (wo + j >= g.Wo) break;
+    const float v[4] = {acc[j].x * s[0], acc[j].y * s[1], acc[j].z * s[2],
+                        acc[j].w * s[3]};
+    if (t.vec_y) {
+      *reinterpret_cast<float4*>(yo + j * g.Cout) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (o + k < g.Cout) yo[j * g.Cout + k] = v[k];
+    }
+  }
 }
+
+// Above 48 KB a kernel must ask for its shared memory, once a device;
+// `asked` holds the caller's flag for each device.
+template <typename F>
+cudaError_t ask_smem(F* kern, int bytes, bool max_shared, bool (&asked)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && asked[dev])) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && max_shared)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) asked[dev] = true;
+  return err;
+}
+
+template <int KK, int SS, bool ASYNC>
+cudaError_t launch_depthwise(const float* x, const int8_t* w, const float* s,
+                             float* y, const Geom& g, const DwTile& t,
+                             int smem, int blocks, cudaStream_t st) {
+  auto kern = log_conv2d_depthwise_kernel<KK, SS, ASYNC>;
+  if (smem > 48 * 1024) {
+    static bool asked[64] = {};
+    const cudaError_t err = ask_smem(kern, DW_SMEM_MAX, false, asked);
+    if (err != cudaSuccess) return err;
+  }
+  const int threads = (t.ct / 4) * t.th * (t.tw / DW_PW);
+  kern<<<blocks, threads, smem, st>>>(x, w, s, y, g, t);
+  return cudaGetLastError();
+}
+using DwLaunch = cudaError_t (*)(const float*, const int8_t*, const float*,
+                                 float*, const Geom&, const DwTile&, int, int,
+                                 cudaStream_t);
 
 template <bool VA, bool VB>
 cudaError_t launch_dense(const float* x, const int8_t* w, const float* s,
@@ -584,21 +764,9 @@ cudaError_t launch_dense(const float* x, const int8_t* w, const float* s,
                          int* tickets, const Geom& g, int groups, int sps,
                          int splits, cudaStream_t st) {
   auto kern = log_conv2d_dense_kernel<VA, VB>;
-  // above 48 KB the kernel must ask for its shared memory, once a device
-  static bool asked[64][2][2] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool asked[64] = {};
+  const cudaError_t err = ask_smem(kern, SMEM, true, asked);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !asked[dev][VA][VB]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-        cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) asked[dev][VA][VB] = true;
-  }
   const int M = g.B * g.Ho * g.Wo;
   const dim3 grid((g.cout_g + BN - 1) / BN, (M + BM - 1) / BM,
                   groups * splits);
@@ -612,11 +780,15 @@ cudaError_t launch_dense(const float* x, const int8_t* w, const float* s,
 // Launches on `stream` and returns cudaGetLastError(); 0 means launched.
 // Pointers are device pointers; shapes were checked by the Python wrapper,
 // and the geometry comes from `log_conv2d_geometry`.  table holds the
-// 2^(bits+1) plane entries of `plane_table`.  The dense path (cin_g > 1)
-// walks R = K*K*cin_g in stages of 32; with splits > 1, each of the
-// `splits` shares takes sps stages, part is fp32 [splits, B*Ho*Wo, Cout]
-// scratch and tickets holds one zeroed int32 per (group, row, column) tile,
-// left zeroed by the launch; with splits == 1 neither is touched.
+// 2^(bits+1) plane entries of `plane_table`.  The depthwise path
+// (cin_g == 1) takes tiles of dw_th x dw_tw x dw_ct outputs (dw_tw a
+// multiple of 4, dw_ct in {4, 8, 16, 32}, at most 256 threads and 227 KB
+// of shared memory a block) and ignores sps, splits, part, tickets and
+// table.  The dense path (cin_g > 1) walks R = K*K*cin_g in stages of 32;
+// with splits > 1, each of the `splits` shares takes sps stages, part is
+// fp32 [splits, B*Ho*Wo, Cout] scratch and tickets holds one zeroed int32
+// per (group, row, column) tile, left zeroed by the launch; with
+// splits == 1 neither is touched.
 extern "C" int log_conv2d_launch(const void* x, const void* w,
                                  const void* scale, const void* table,
                                  void* y, void* part, void* tickets, int B,
@@ -625,6 +797,7 @@ extern "C" int log_conv2d_launch(const void* x, const void* w,
                                  int pad_w, int groups, int g_b, int w_sb,
                                  int w_gl, int w_tap, int w_in, int bits,
                                  int frac_bits, int sps, int splits,
+                                 int dw_th, int dw_tw, int dw_ct,
                                  void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.C = C;
@@ -641,10 +814,37 @@ extern "C" int log_conv2d_launch(const void* x, const void* w,
   const float* sp = static_cast<const float*>(scale);
   float* yp = static_cast<float*>(y);
   if (g.cin_g == 1) {
-    const long long total = (long long)B * Ho * Wo * Cout;
-    const unsigned blocks = (unsigned)((total + NT - 1) / NT);
-    log_conv2d_depthwise_kernel<<<blocks, NT, 0, s>>>(xp, wp, sp, yp, g);
-    return static_cast<int>(cudaGetLastError());
+    DwTile t;
+    t.th = dw_th; t.tw = dw_tw; t.ct = dw_ct;
+    t.lq = dw_ct == 4 ? 0 : dw_ct == 8 ? 1 : dw_ct == 16 ? 2 : 3;
+    if (dw_th < 1 || dw_tw < DW_PW || dw_tw % DW_PW != 0 ||
+        (dw_ct != 4 && dw_ct != 8 && dw_ct != 16 && dw_ct != 32) ||
+        (long long)(dw_ct / 4) * dw_th * (dw_tw / DW_PW) > DW_NT)
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.pr = (dw_th - 1) * stride + K;
+    t.pc = (dw_tw - 1) * stride + K;
+    const long long smem = 4LL * ((long long)t.pr * t.pc + K * K) * dw_ct;
+    t.tiles_h = (Ho + dw_th - 1) / dw_th;
+    t.tiles_w = (Wo + dw_tw - 1) / dw_tw;
+    t.tiles_c = (Cout + dw_ct - 1) / dw_ct;
+    const long long blocks = (long long)B * t.tiles_c * t.tiles_h * t.tiles_w;
+    if (smem > DW_SMEM_MAX || blocks > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.vec_y = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+    // 16-byte copies of x: every chunk of 4 channels is 16 aligned bytes
+    const bool async = C % 4 == 0 && g.cout_g == 1 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    DwLaunch launch = async ? &launch_depthwise<0, 0, true>
+                            : &launch_depthwise<0, 0, false>;
+    if (K == 3 && stride == 1)
+      launch = async ? &launch_depthwise<3, 1, true>
+                     : &launch_depthwise<3, 1, false>;
+    else if (K == 3 && stride == 2)
+      launch = async ? &launch_depthwise<3, 2, true>
+                     : &launch_depthwise<3, 2, false>;
+    const cudaError_t err = launch(xp, wp, sp, yp, g, t, (int)smem,
+                                   (int)blocks, s);
+    return static_cast<int>(err);
   }
   const int stages = (K * K * g.cin_g + BK - 1) / BK;
   if (sps < 1 || splits < 1 || (long long)(splits - 1) * sps >= stages ||

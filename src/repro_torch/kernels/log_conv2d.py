@@ -272,7 +272,10 @@ _GRID_YZ_MAX = 65535
 # the dense kernel's tile: BM output pixels x BN output channels a block,
 # R walked in stages of BK reduction indices (csrc/log_conv2d.cu)
 BM, BN, BK = 128, 64, 32
-DEPTHWISE_THREADS = 256
+# the depthwise kernel: DW_PW outputs a thread along W, at most DW_NT
+# threads and DW_SMEM_MAX bytes of shared memory a block, tiles at most
+# DW_TW columns and DW_CT channels wide
+DW_PW, DW_NT, DW_SMEM_MAX, DW_TW, DW_CT = 4, 256, 232448, 16, 32
 
 
 @functools.lru_cache(maxsize=16)
@@ -306,16 +309,78 @@ def plane_table(cfg: LogQuantConfig, device: torch.device) -> torch.Tensor:
     return entry.to(torch.int32).to(device)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _depthwise_smem(th: int, tw: int, ct: int, K: int, stride: int) -> int:
+    """Shared memory of a depthwise block: the fp32 input patch of a
+    ``th x tw`` output tile, halo included, and the decoded codes, both
+    ``ct`` channels wide."""
+    return 4 * ct * (((th - 1) * stride + K) * ((tw - 1) * stride + K)
+                     + K * K)
+
+
+def _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g, n_sm):
+    """A depthwise block owns ``th x tw`` outputs of ``ct`` channels of one
+    image; a thread, 4 channels of ``DW_PW`` adjacent outputs.  ``tw``
+    splits Wo into near-equal tiles of at most ``DW_TW`` columns (half that
+    at stride > 1, where the patch is wider); ``ct`` is ``DW_CT`` or the
+    power of two that holds Cout; ``th`` is the largest that keeps the
+    block within ``DW_NT`` threads and the shared memory.  Where those
+    tiles launch fewer than ``n_sm`` blocks, ``ct`` halves (down to 16) and
+    then ``th`` shrinks until they do, or to one-row tiles."""
+    tw_max = DW_TW if stride == 1 else DW_TW // 2
+    tw = DW_PW * _cdiv(_cdiv(Wo, _cdiv(Wo, tw_max)), DW_PW)
+    tiles_w = _cdiv(Wo, tw)
+    ct = min(DW_CT, 4 * _next_pow2(_cdiv(Cout, 4)))
+
+    def rows(ct):
+        """The largest near-equal th that fits, and its block count."""
+        per_row = ct // 4 * (tw // DW_PW)
+        for th in range(min(Ho, DW_NT // per_row), 0, -1):
+            th = _cdiv(Ho, _cdiv(Ho, th))
+            if _depthwise_smem(th, tw, ct, K, stride) <= DW_SMEM_MAX:
+                return th, B * _cdiv(Ho, th) * tiles_w * _cdiv(Cout, ct)
+        raise ValueError(f"no depthwise tile fits {DW_SMEM_MAX} bytes of "
+                         f"shared memory at K={K}, stride={stride}")
+
+    th, blocks = rows(ct)
+    while blocks < n_sm and ct > 16:
+        ct //= 2
+        th, blocks = rows(ct)
+    tiles_h = _cdiv(Ho, th)
+    while blocks < n_sm and th > 1:
+        tiles_h += 1
+        th = _cdiv(Ho, tiles_h)
+        blocks = B * _cdiv(Ho, th) * tiles_w * _cdiv(Cout, ct)
+    tiles_h, tiles_c = _cdiv(Ho, th), _cdiv(Cout, ct)
+    return {"path": "depthwise",
+            "load": "cp.async" if C % 4 == 0 and cout_g == 1 else "gather",
+            "tile": (th, tw, ct), "threads": ct // 4 * th * (tw // DW_PW),
+            "smem_bytes": _depthwise_smem(th, tw, ct, K, stride),
+            "tiles_h": tiles_h, "tiles_w": tiles_w, "tiles_c": tiles_c,
+            "tiles": B * tiles_h * tiles_w * tiles_c, "splits": 1,
+            "stages_per_split": 1, "blocks": B * tiles_h * tiles_w * tiles_c}
+
+
 def log_conv2d_geometry(B: int, H: int, W: int, C: int, K: int, Cout: int,
                         stride: int = 1, padding="SAME", groups: int = 1,
                         n_sm: int = 132) -> dict:
     """The launch shape of the CUDA kernel for one conv on a card of
     ``n_sm`` SMs.
 
-    Depthwise (``C // groups == 1``): one thread per output value.  Dense:
-    an implicit GEMM, M = B·Ho·Wo pixels by N = Cout // groups channels a
-    group, R = K·K·cin_g reduction indices in ``stages`` of ``BK``; a block
-    owns a ``BM x BN`` tile of one group and one share of
+    Depthwise (``C // groups == 1``): a block owns a ``tile`` of ``th x tw``
+    outputs of ``ct`` channels of one image (`_depthwise_geometry`) and
+    stages its input patch in ``smem_bytes`` of shared memory; ``load`` is
+    ``cp.async`` (16-byte copies, C % 4 == 0 and one output channel a
+    group) or ``gather``.  → dict with ``path``, ``load``, ``tile``,
+    ``threads``, ``smem_bytes``, ``tiles_h``, ``tiles_w``, ``tiles_c``,
+    ``tiles``, ``splits`` (1), ``stages_per_split`` (1) and ``blocks``.
+
+    Dense: an implicit GEMM, M = B·Ho·Wo pixels by N = Cout // groups
+    channels a group, R = K·K·cin_g reduction indices in ``stages`` of
+    ``BK``; a block owns a ``BM x BN`` tile of one group and one share of
     ``stages_per_split`` stages.  Where the tiles alone leave SMs idle the
     shares bring the launch near two blocks per SM, and at least one block
     per SM where R allows it: ``splits`` shares cover the stages exactly and
@@ -331,11 +396,8 @@ def log_conv2d_geometry(B: int, H: int, W: int, C: int, K: int, Cout: int,
                          f"Cout={Cout} stride={stride} groups={groups}")
     cin_g, cout_g, M = C // groups, Cout // groups, B * Ho * Wo
     if cin_g == 1:
-        blocks = -(-M * Cout // DEPTHWISE_THREADS)
-        return {"path": "depthwise", "load": "gather", "bm": None,
-                "bn": None, "bk": None, "m_tiles": None, "n_tiles": None,
-                "tiles": blocks, "stages": 1, "splits": 1,
-                "stages_per_split": 1, "blocks": blocks}
+        return _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g,
+                                   n_sm)
     m_tiles, n_tiles = -(-M // BM), -(-cout_g // BN)
     tiles = m_tiles * n_tiles * groups
     stages = -(-K * K * cin_g // BK)
@@ -377,7 +439,7 @@ def split_tickets(device: torch.device, tiles: int) -> torch.Tensor:
 def _kernel_fn():
     fn = _build.load("log_conv2d").log_conv2d_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 21
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 24
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -466,7 +528,7 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
                        B, H, W, C, Ho, Wo, Cout, K, stride, pads[0][0],
                        pads[1][0], groups, g_b, w_sb, w_gl, w_tap, w_in,
                        cfg.bits, cfg.frac_bits, geo["stages_per_split"],
-                       geo["splits"], stream)
+                       geo["splits"], *geo.get("tile", (0, 0, 0)), stream)
     if err != 0:
         raise RuntimeError(f"log_conv2d CUDA launch failed: cudaError {err}")
     log_conv2d_fused.launches += 1

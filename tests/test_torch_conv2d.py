@@ -50,6 +50,22 @@ LANE_SHAPES = [  # test_conv2d.py:89
 ]
 
 
+DW_SHAPES = [  # depthwise shapes at the edges of the depthwise kernel's tiles
+    (1, 19, 21, 8, 3, 8, 1, "SAME", 8),       # H and W not multiples of a tile
+    (3, 11, 13, 10, 3, 10, 1, "SAME", 10),    # C % 4 != 0, batch 3
+    (1, 15, 16, 12, 3, 12, 2, "SAME", 12),    # stride 2, odd H; W pads (0, 1)
+    (3, 14, 9, 36, 3, 36, 2, "SAME", 36),     # stride 2, a ragged channel tile
+    (2, 12, 11, 8, 5, 8, 1, "SAME", 8),       # K = 5
+    (1, 13, 14, 8, 5, 8, 2, "SAME", 8),       # K = 5, stride 2, pads (1, 2)
+    (1, 10, 9, 4, 3, 8, 1, "SAME", 4),        # channel multiplier 2
+    (3, 9, 10, 6, 3, 12, 2, "SAME", 6),       # multiplier 2, stride 2
+    (1, 37, 41, 40, 3, 40, 1, "SAME", 40),    # many tiles each way
+    (2, 9, 9, 16, 3, 16, 2, "VALID", 16),     # VALID, stride 2
+    (2, 28, 30, 24, 3, 48, 1, "SAME", 24),    # multiplier 2, 16-channel tiles
+    (4, 40, 36, 30, 3, 30, 2, "SAME", 30),    # C % 4 != 0 on wider tiles
+]
+
+
 @pytest.fixture(autouse=True)
 def _reference_package(request):
     if jnp is None and request.node.get_closest_marker("cuda") is None:
@@ -214,27 +230,52 @@ def _geometry_cases():
     recs = [(r["B"], r["H"], r["W"], r["C"], r["K"], r["Cout"], r["stride"],
              r["padding"], r["groups"])
             for b in (1, 8) for r in zoo_conv_shapes(batch=b)]
-    return recs + SHAPES + LANE_SHAPES
+    return recs + SHAPES + LANE_SHAPES + DW_SHAPES
+
+
+def _check_depthwise_geometry(g, B, Ho, Wo, C, K, P, stride, groups):
+    """A depthwise launch shape: tiles that cover Ho x Wo x Cout exactly, a
+    block within 256 threads whose halo patch and decoded codes fit the
+    shared memory it declares, and the cp.async load exactly where
+    C % 4 == 0 and each group has one output channel."""
+    assert g["path"] == "depthwise" and g["splits"] == 1
+    th, tw, ct = g["tile"]
+    for n, t, tiles in ((Ho, th, "tiles_h"), (Wo, tw, "tiles_w"),
+                        (P, ct, "tiles_c")):
+        assert (g[tiles] - 1) * t < n <= g[tiles] * t, (tiles, g)
+    assert g["tiles"] == g["blocks"] == \
+        B * g["tiles_h"] * g["tiles_w"] * g["tiles_c"]
+    assert tw % tlc.DW_PW == 0 and ct in (4, 8, 16, 32)
+    assert g["threads"] == ct // 4 * th * (tw // tlc.DW_PW) <= tlc.DW_NT
+    patch = ((th - 1) * stride + K) * ((tw - 1) * stride + K) * ct * 4
+    assert patch + K * K * ct * 4 <= g["smem_bytes"] <= tlc.DW_SMEM_MAX
+    assert g["load"] == ("cp.async" if C % 4 == 0 and P == groups
+                         else "gather")
 
 
 @pytest.mark.parametrize("n_sm", [132, 114])
 def test_conv_geometry_covers_r_and_fills_the_card(n_sm):
     """`log_conv2d_geometry` at every zoo conv shape (batch 1 and 8) and the
-    sweep shapes: the shares cover the stages of R exactly, none is empty,
-    and the launch has at least one block per SM wherever R allows it."""
+    sweep shapes.  Dense: the shares cover the stages of R exactly, none is
+    empty, and the launch has at least one block per SM wherever R allows
+    it.  Depthwise: the tiles cover the output and fit the block
+    (`_check_depthwise_geometry`), and every MobileNet depthwise conv at
+    batch 8 launches at least one block per SM."""
+    from repro_torch.models.cnn import zoo_conv_shapes
     seen_split = False
     for (B, H, W, C, K, P, stride, padding, groups) in _geometry_cases():
         g = tlc.log_conv2d_geometry(B, H, W, C, K, P, stride, padding,
                                     groups, n_sm=n_sm)
         cin_g = C // groups
+        pads = tlc.normalize_padding(padding, K, stride, H, W)
+        Ho = tlc._out_size(H, K, stride, pads[0])
+        Wo = tlc._out_size(W, K, stride, pads[1])
         if cin_g == 1:
-            assert g["path"] == "depthwise" and g["splits"] == 1
+            _check_depthwise_geometry(g, B, Ho, Wo, C, K, P, stride, groups)
             continue
         assert g["path"] == "dense"
         assert g["load"] == ("cp.async" if cin_g % 16 == 0 else "gather")
-        pads = tlc.normalize_padding(padding, K, stride, H, W)
-        M = B * tlc._out_size(H, K, stride, pads[0]) * \
-            tlc._out_size(W, K, stride, pads[1])
+        M = B * Ho * Wo
         assert g["m_tiles"] == -(-M // tlc.BM)
         assert g["n_tiles"] == -(-(P // groups) // tlc.BN)
         assert g["tiles"] == g["m_tiles"] * g["n_tiles"] * groups
@@ -248,6 +289,13 @@ def test_conv_geometry_covers_r_and_fills_the_card(n_sm):
     # ResNet-34's 7x7x512 -> 512 layer at batch 8: 32 tiles, 144 stages
     g = tlc.log_conv2d_geometry(8, 7, 7, 512, 3, 512, n_sm=n_sm)
     assert g["tiles"] == 32 and g["blocks"] >= 2 * n_sm * 0.9
+    dw = [r for r in zoo_conv_shapes(batch=8) if r["C"] == r["groups"]]
+    assert len(dw) == 9 and all(r["nets"] == ["mobilenet_v1"] for r in dw)
+    for r in dw:
+        g = tlc.log_conv2d_geometry(*(r[k] for k in (
+            "B", "H", "W", "C", "K", "Cout", "stride", "padding", "groups")),
+            n_sm=n_sm)
+        assert g["blocks"] >= n_sm and g["load"] == "cp.async", (r, g)
     with pytest.raises(ValueError):
         tlc.log_conv2d_geometry(1, 4, 4, 6, 3, 4, groups=4)
 
@@ -297,6 +345,107 @@ def test_kernel_arithmetic_matches_jax_blockwise(B, H, W, C, K, P, stride,
     x_hi = torch.from_numpy(x).to(torch.bfloat16).float()
     y_hi = tlc.log_conv2d_blockwise(x_hi, qt.packed, qt.scale, **kw)
     assert float(np.abs(y_hi.numpy() - y_j).max()) > tol
+
+
+def _emulate_depthwise(x, packed, scale, *, stride, padding, groups,
+                      lane=None, n_sm=132):
+    """The depthwise kernel's arithmetic in plain torch, block by block as
+    `log_conv2d_geometry` tiles the output: each block's input patch, zero
+    outside the image and past the last channel (output channel o reads
+    input channel o // cout_g), the codes read at the kernel's addresses in
+    either layout and decoded once, then per output fp32 fmaf over (kh, kw)
+    in row-major order from 0 and the scale.  An fmaf is emulated as the
+    exact fp64 product plus the sum, rounded to fp32.  Outputs no tile
+    covers stay NaN."""
+    B, H, W, C = x.shape
+    if lane is None:
+        K, Cout = packed.shape[0], packed.shape[3]
+    else:
+        n_sb, taps, L, cout_lane = packed.shape
+        K, Cout = int(round(taps ** 0.5)), groups * cout_lane
+    cout_g = Cout // groups
+    if lane is None:
+        g_b, w_sb, w_gl, w_tap = 1, cout_g, 0, Cout
+    else:
+        g_b, cin_lane = lane
+        w_sb, w_gl, w_tap = K * K * L * cout_g, cin_lane * cout_g, L * cout_g
+    pads = tlc.normalize_padding(padding, K, stride, H, W)
+    Ho = tlc._out_size(H, K, stride, pads[0])
+    Wo = tlc._out_size(W, K, stride, pads[1])
+    geo = tlc.log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
+                                  n_sm=n_sm)
+    th, tw, ct = geo["tile"]
+    o = torch.arange(Cout)
+    grp = o // cout_g
+    base = (grp // g_b) * w_sb + (grp % g_b) * w_gl + (o - grp * cout_g)
+    codes = packed.reshape(-1)[base[None, :]
+                               + torch.arange(K * K)[:, None] * w_tap]
+    dec = tlc.decode_codes(codes).double()            # [K*K, Cout]
+    scale = tlc._scale_vector(scale, Cout, x.device)
+    y = torch.full((B, Ho, Wo, Cout), float("nan"))
+    pr, pc = (th - 1) * stride + K, (tw - 1) * stride + K
+    for b in range(B):
+        for tc in range(geo["tiles_c"]):
+            oc = torch.arange(tc * ct, (tc + 1) * ct)
+            c_ok = oc < Cout
+            oc = oc.clamp(max=Cout - 1)
+            wd = torch.where(c_ok, dec[:, oc], 0.0)
+            for t_h in range(geo["tiles_h"]):
+                for t_w in range(geo["tiles_w"]):
+                    ho0, wo0 = t_h * th, t_w * tw
+                    hi = ho0 * stride - pads[0][0] + torch.arange(pr)
+                    wi = wo0 * stride - pads[1][0] + torch.arange(pc)
+                    ok = (((hi >= 0) & (hi < H))[:, None, None]
+                          & ((wi >= 0) & (wi < W))[None, :, None]
+                          & c_ok[None, None, :])
+                    patch = x[b][hi.clamp(0, H - 1)][:, wi.clamp(0, W - 1)]
+                    patch = torch.where(ok, patch[:, :, oc // cout_g], 0.0)
+                    acc = torch.zeros((th, tw, ct), dtype=torch.float32)
+                    for kh in range(K):
+                        for kw in range(K):
+                            xs = patch[kh:kh + (th - 1) * stride + 1:stride,
+                                       kw:kw + (tw - 1) * stride + 1:stride]
+                            acc = (xs.double() * wd[kh * K + kw]
+                                   + acc.double()).float()
+                    out = acc * torch.where(c_ok, scale[oc], 0.0)
+                    nh, nw = min(th, Ho - ho0), min(tw, Wo - wo0)
+                    nc = int(c_ok.sum())
+                    y[b, ho0:ho0 + nh, wo0:wo0 + nw, tc * ct:tc * ct + nc] = \
+                        out[:nh, :nw, :nc]
+    return y
+
+
+DW_CASES = [s for s in SHAPES + LANE_SHAPES if s[3] == s[8]] + DW_SHAPES
+
+
+@pytest.mark.parametrize("B,H,W,C,K,P,stride,padding,groups", DW_CASES)
+def test_depthwise_kernel_arithmetic_matches_jax_blockwise(
+        B, H, W, C, K, P, stride, padding, groups):
+    """The depthwise kernel's tiles, zero-filled halo and (kh, kw) order,
+    emulated at the card's tiles (132 SMs) and at the largest tiles
+    (1 SM), in natural and lane-packed codes, stay within the per-conv
+    tolerance of JAX's `log_conv2d_blockwise`; the two layouts give the
+    same bits."""
+    x, w = _inputs(11, B, H, W, C, K, P, groups)
+    kw = dict(stride=stride, padding=padding, groups=groups)
+    qj = jquantize(jnp.asarray(w))
+    qt = tquantize(torch.from_numpy(w))
+    y_j = np.asarray(jlc.log_conv2d_blockwise(jnp.asarray(x), qj.packed,
+                                              qj.scale, **kw))
+    tol = 1e-4 * float(np.abs(y_j).max() + 1)
+    lp = tlc.lane_pack_geometry(groups, 1)
+    lane_codes = tlc.lane_pack_codes(qt.packed, groups, lp["g_b"],
+                                     lp["cin_lane"])
+    xt = torch.from_numpy(x)
+    for n_sm in (132, 1):
+        y = _emulate_depthwise(xt, qt.packed, qt.scale, n_sm=n_sm, **kw)
+        assert tuple(y.shape) == y_j.shape
+        assert bool(torch.isfinite(y).all()), "a tile left outputs unwritten"
+        err = float(np.abs(y.numpy() - y_j).max())
+        assert err <= tol, (n_sm, err, tol)
+        y_lane = _emulate_depthwise(xt, lane_codes, qt.scale, n_sm=n_sm,
+                                    lane=(lp["g_b"], lp["cin_lane"]), **kw)
+        assert torch.equal(y.view(torch.int32), y_lane.view(torch.int32))
 
 
 def test_resolve_impl_follows_the_tensor_device():
@@ -435,9 +584,11 @@ def test_split_shapes_cross_share_boundaries():
 def test_cuda_kernel_matches_plain_versions(cuda_device):
     """The hand-written kernel against `log_conv2d_ref` and
     `log_conv2d_blockwise` on the card, in natural and lane-packed layouts,
-    split-K included; each call made twice gives the same bits.  Plus the
-    bit-exact decode of all 128 codes on the depthwise path and both dense
-    load paths."""
+    split-K and the depthwise tile edges included; each call made twice
+    gives the same bits.  Plus the bit-exact decode of all 128 codes on the
+    depthwise path and both dense load paths, and the depthwise gather on x
+    4 bytes past a 16-byte boundary, bit for bit against the cp.async load
+    of the same x."""
     dev = cuda_device
     codes = torch.arange(128, dtype=torch.int8, device=dev)
     want = tlc.decode_codes(codes).view(torch.int32)
@@ -449,8 +600,20 @@ def test_cuda_kernel_matches_plain_versions(cuda_device):
         y = tlc.log_conv2d_fused(x, w.reshape(1, 1, cin, 128).contiguous(),
                                  ones, padding="VALID")
         assert torch.equal(y.reshape(-1).view(torch.int32), want), cin
+    x, w = _inputs(12, 2, 9, 10, 8, 3, 8, 8)
+    qt = tquantize(torch.from_numpy(w).to(dev))
+    xt = torch.from_numpy(x).to(dev)
+    x_off = torch.empty(x.size + 1, device=dev)[1:].view(x.shape)
+    x_off.copy_(xt)
+    assert x_off.data_ptr() % 16 == 4
+    y_al = tlc.log_conv2d_fused(xt, qt.packed, qt.scale, groups=8)
+    y_off = tlc.log_conv2d_fused(x_off, qt.packed, qt.scale, groups=8)
+    assert torch.equal(y_al.view(torch.int32), y_off.view(torch.int32))
+    y_ref = tlc.log_conv2d_ref(xt, qt.packed, qt.scale, groups=8)
+    assert float((y_al - y_ref).abs().max()) <= \
+        1e-4 * (float(y_ref.abs().max()) + 1)
     for (B, H, W, C, K, P, stride, padding, groups) in (
-            SHAPES + LANE_SHAPES + SPLIT_SHAPES):
+            SHAPES + LANE_SHAPES + SPLIT_SHAPES + DW_SHAPES):
         x, w = _inputs(9, B, H, W, C, K, P, groups)
         xt = torch.from_numpy(x).to(dev)
         qt = tquantize(torch.from_numpy(w).to(dev))
