@@ -95,10 +95,15 @@ goes wrong:
      closed form is finite), for o and the final state: the shapes of
      `tests/test_kernels_wkv6.py` (K != V included), rwkv6-1.6b's decode
      (B=4, T=1, H=32, K=V=64, carried state), prefill (T in {3, 15}) and a
-     T=2048 call, fp32 and bf16 r/k/v (tolerance 1e-4 and 8e-3 times
-     (max|y| + 1)), two halves against the whole, and a strong decay
-     (logw = -7, the clip's floor), where the kernel must be finite; it
-     prints whether the chunked plain version gave NaN there;
+     T=2048 call, T on either side of the variant threshold (4 | 5), of a
+     sub-chunk (16 | 17) and of a chunk (32 | 33) of the chunked variant,
+     V = 40 (not a multiple of the 16-column tile) in both variants, K = 24
+     and V = 37 (element copies), fp32 and bf16 r/k/v (tolerance 1e-4 and
+     8e-3 times (max|y| + 1)), two halves against the whole, and strong
+     decays (logw = -7, the clip's floor -e^2 at T = 2048, and -20), where
+     the kernel must be finite; it prints whether the chunked plain version
+     gave NaN there.  Every case is run twice and must give the same bits,
+     and its variant, blocks and tile (`wkv6_geometry`) are printed;
  12. the RWKV slice: rwkv6-1.6b at full width served as in 9.  log_matmul
      must launch 192 times and wkv6 24 times per forward; every log_matmul
      and wkv6 call of one prefill and one decode step is held against its
@@ -112,7 +117,9 @@ goes wrong:
      printed;
  13. wkv6 times: kernel (`torch.profiler` device time, with the CUDA-event
      time beside it), plain versions (`ref_wkv6`, `wkv6_chunked`, CUDA
-     events) and the byte bound, summed over one decode step's 24 calls,
+     events) and the bound (bytes at 3.35 TB/s or FLOP at the 67 TFLOP/s
+     fp32 peak, the larger), with the variant, the blocks and the share of
+     the bound, summed over one decode step's 24 calls,
      over a 15-token prefill's 24 calls, and for one T=2048 call (where a
      profiler window missed at most 2 % of the kernels, as in 10, their
      mean stands in for the missing ones).  No single
@@ -124,8 +131,8 @@ Phases 5, 9 and 12 drive the main paths: the kernels' launch counts are set
 to 0 just before each and read just after.
 
 The build log must show the log_conv2d and log_matmul kernels at no more
-than 128 registers a thread, the attention kernels at no more than 255,
-and no spill.  A `torch.profiler` window that lost kernel events is taken
+than 128 registers a thread, the attention and wkv6 kernels at no more
+than 255, and no spill.  A `torch.profiler` window that lost kernel events is taken
 again after half a second, up to five windows in all; then the run fails.
 Each retake is printed and listed in the details.  Details go to
 `chiprun_out/chip_smoke.json`.  The last three lines are the
@@ -1572,7 +1579,8 @@ def phase_wkv6(dev) -> tuple[list, float]:
     `tests/test_kernels_wkv6.py`, rwkv6-1.6b's decode, prefill and a long
     call, fp32 and bf16 r/k/v, a carried state and a strong decay."""
     from repro_torch.kernels.ref import ref_wkv6
-    from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_cuda
+    from repro_torch.kernels.wkv6 import (wkv6_chunked, wkv6_cuda,
+                                          wkv6_geometry)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     H, hs = 32, 64                               # rwkv6-1.6b's heads
     cases = [((1, 64, 2, 32, 32), {}), ((2, 96, 2, 16, 32), {}),
@@ -1582,17 +1590,32 @@ def phase_wkv6(dev) -> tuple[list, float]:
              ((1, 3, H, hs, hs), dict(state=False)),   # prefill
              ((1, 15, H, hs, hs), dict(state=False)),
              ((1, 2048, H, hs, hs), {}),         # a long call
-             ((1, 64, H, hs, hs), dict(logw=-7.0))]    # the clip's floor
+             # either side of the variant threshold (T = 4 | 5), of a
+             # sub-chunk (16 | 17) and of a chunk (32 | 33)
+             ((1, 4, H, hs, hs), {}), ((1, 5, H, hs, hs), {}),
+             ((1, 16, H, hs, hs), {}), ((1, 17, H, hs, hs), {}),
+             ((1, 32, H, hs, hs), {}), ((1, 33, H, hs, hs), {}),
+             # V not a multiple of the tile (40 = 16 + 16 + 8), in both
+             # variants, and rows that take element copies (K = 24, V = 37)
+             ((1, 40, 2, hs, 40), {}), ((3, 3, 2, hs, 40), {}),
+             ((1, 70, 2, 24, 37), {}),
+             # strong decays: -7, the clip's floor -e^2 at the long call's
+             # length, and -20
+             ((1, 64, H, hs, hs), dict(logw=-7.0)),
+             ((1, 2048, H, hs, hs), dict(logw=-float(np.e ** 2))),
+             ((1, 100, H, hs, hs), dict(logw=-20.0))]
     rows, max_err = [], 0.0
     for (b, t, h, kd, vd), kw in cases:
         for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 8e-3)):
             r, k, v, lw, u, s0 = _wkv_inputs(gen, dev, b, t, h, kd, vd,
                                              dtype, **kw)
             o, s = wkv6_cuda(r, k, v, lw, u, s0)
+            o2, s2 = wkv6_cuda(r, k, v, lw, u, s0)
             o_r, s_r = ref_wkv6(r, k, v, lw, u, s0)
             o_c, s_c = wkv6_chunked(r, k, v, lw, u, s0,
                                     chunk=min(64, max(16, t)))
             torch.cuda.synchronize()
+            geo = wkv6_geometry(b, t, h, kd, vd)
             label = (f"wkv6 B={b} T={t} H={h} K={kd} V={vd} {dtype} "
                      f"{kw or ''}")
             if o.shape != o_r.shape or o.dtype != dtype \
@@ -1600,7 +1623,13 @@ def phase_wkv6(dev) -> tuple[list, float]:
                     or not bool(torch.isfinite(o).all()) \
                     or not bool(torch.isfinite(s).all()):
                 fail(f"{label}: shape, dtype or non-finite output")
-            row = {"case": label}
+            if not (torch.equal(o, o2) and torch.equal(s, s2)):
+                fail(f"{label}: two calls gave different bits")
+            row = {"case": label, "variant": geo["variant"],
+                   "tile": geo["tile"], "blocks": geo["blocks"]}
+            if dtype == torch.float32:
+                print(f"  {label}: {geo['variant']}, {geo['blocks']} blocks "
+                      f"of {geo['tile']} columns")
             chunked_finite = bool(torch.isfinite(o_c.float()).all())
             row["chunked_finite"] = chunked_finite
             plains = {"ref": (o_r, s_r)}
@@ -1639,7 +1668,8 @@ def phase_wkv6(dev) -> tuple[list, float]:
                     for k_, v_ in r_.items() if k_.startswith(f"{p}_vs"))
                 for r_ in rows)
     print(f"wkv6: {len(rows)} cases within tol (fp32 and bf16, o and S_T), "
-          f"max |kernel - plain| {max_err:.3e}, worst err/tol {worst:.3e}")
+          f"each bit-identical over two calls, max |kernel - plain| "
+          f"{max_err:.3e}, worst err/tol {worst:.3e}")
     return rows, max_err
 
 
@@ -1649,7 +1679,8 @@ def phase_wkv6_times(dev, engine) -> dict:
     bf16 r/k/v, fp32 logw, each layer's own u and state from the engine's
     cache), the 24 calls of a 15-token prefill and one T = 2048 call."""
     from repro_torch.kernels.ref import ref_wkv6
-    from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_cuda, wkv6_work
+    from repro_torch.kernels.wkv6 import (wkv6_chunked, wkv6_cuda,
+                                          wkv6_geometry, wkv6_work)
     from repro_torch.models.transformer import _rep
     cfg, params = engine.cfg, engine.params
     H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
@@ -1677,7 +1708,8 @@ def phase_wkv6_times(dev, engine) -> dict:
         # stands in for it, so a window holds at least 50 kernels
         n_win = max(5, -(-50 // len(ins)))
         seen = complete_window(kernel, f"wkv6 {label}", n_win,
-                               lambda name: "wkv6_kernel" in name,
+                               lambda name: "wkv6_decode_kernel" in name
+                               or "wkv6_chunked_kernel" in name,
                                expect=len(ins), min_share=0.98)
         tt = {"calls": len(ins), "ms": sum(seen) / len(seen) * len(ins),
               "time": "device time by torch.profiler; the others by CUDA "
@@ -1696,13 +1728,21 @@ def phase_wkv6_times(dev, engine) -> dict:
         tt.update(bytes_ms=nbytes / PEAK_HBM_BYTES * 1e3,
                   ops_ms=flops / PEAK_FP32_FLOPS * 1e3, mbytes=nbytes / 1e6)
         tt["bound_ms"] = max(tt["bytes_ms"], tt["ops_ms"])
+        tt["bound_by"] = ("operations" if tt["ops_ms"] >= tt["bytes_ms"]
+                          else "bytes")
+        tt["bound_share"] = tt["bound_ms"] / tt["ms"]
+        geo = wkv6_geometry(b, t, H, hs, hs)
+        tt.update(variant=geo["variant"], blocks=geo["blocks"],
+                  tile=geo["tile"])
         out[f"wkv6 {label}"] = tt
         print(f"wkv6 x{len(ins)} ({label}, B={b}, T={t}, H={H}, K=V={hs}, "
-              f"{cfg.act_dtype} r/k/v): kernel {tt['ms']:.4f} ms device "
-              f"(events {tt['event_ms']:.4f}), plain "
+              f"{cfg.act_dtype} r/k/v; {geo['variant']}, {geo['blocks']} "
+              f"blocks of {geo['tile']} columns): kernel {tt['ms']:.4f} ms "
+              f"device (events {tt['event_ms']:.4f}), plain "
               f"{tt['plain_ms']:.4f} ms (chunked {tt['chunked_plain_ms']:.4f}"
-              f" ms), bound {tt['bound_ms']:.5f} ms ({tt['mbytes']:.2f} MB); "
-              f"no single PyTorch call computes the recurrence")
+              f" ms), bound {tt['bound_ms']:.5f} ms ({tt['bound_by']}, "
+              f"{tt['mbytes']:.2f} MB), {tt['bound_share']:.3f} of the bound;"
+              f" no single PyTorch call computes the recurrence")
     return out
 
 
@@ -1735,6 +1775,10 @@ def main() -> int:
     # the no-spill part of the check can fail
     if "flash_attention" in built:
         check_registers(built["flash_attention"]["log"], 255)
+    # both wkv6 kernels are bounded at 256 threads a block and one block an
+    # SM, which allows the cap of 255 registers a thread
+    if "wkv6" in built:
+        check_registers(built["wkv6"]["log"], 255)
 
     phase_decode(dev)
     checks, max_err = phase_sweeps(dev)
@@ -1809,7 +1853,11 @@ def main() -> int:
             rw["launches"]["wkv6"], wk_err, wk_times["wkv6 decode step"],
             time=f"device time by torch.profiler over the {RWKV_ARCH} "
             f"decode step's 24 calls; plain_ms and event_ms by CUDA events",
-            event_ms=wk_times["wkv6 decode step"]["event_ms"])]
+            event_ms=wk_times["wkv6 decode step"]["event_ms"],
+            variant=wk_times["wkv6 decode step"]["variant"],
+            long_shapes={k: {f: wk_times[k][f] for f in (
+                "variant", "blocks", "ms", "bound_ms", "bound_by")}
+                for k in wk_times if k != "wkv6 decode step"})]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -299,7 +299,8 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 class WkvConfig:
     """Chunking spec for `wkv6`'s blockwise version (the chunk length
     bounds the exp dynamic range of the closed form; see `kernels/wkv6.py`).
-    The CUDA kernel runs token by token and reads no chunk."""
+    The CUDA kernel reads no chunk from it: its variant, chunk and
+    sub-chunk come from `wkv6_geometry`, which has no knob a user sets."""
     chunk: int = 64
 
 

@@ -2,15 +2,19 @@
 
 Counterpart of `repro.kernels.wkv6`.  ``wkv6_cuda`` is the wrapper of the
 hand-written CUDA kernel `csrc/wkv6.cu`, which replaces the TPU kernel
-`wkv6_pallas`.  It runs the recurrence
+`wkv6_pallas`.  It computes
 
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
     o_t = r_t (S_{t-1} + diag(u) k_t v_tᵀ)
 
-token by token with the state in registers, so it is exact for every decay
-and takes any T, T = 1 included, with no padding.  Its plain version is
-`ref.ref_wkv6`, which the wrapper runs for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises.
+in one launch of one of two variants, which ``wkv6_geometry`` picks with
+the column tile of a block: for T ≤ ``DECODE_MAX_T`` several threads a
+column run the recurrence; for longer T an exact chunked form walks chunks
+of ``CHUNK`` tokens in sub-chunks of ``SUB_CHUNK``, with every decay factor
+an exponential of a non-positive number, so it is finite for every
+``logw ≤ 0`` and takes any T, T = 1 included, with no padding.  Its plain
+version is `ref.ref_wkv6`, which the wrapper runs for a CPU tensor; for a
+CUDA tensor it launches the kernel or raises.
 
 ``wkv6_chunked`` is the JAX package's chunked closed form
 (`wkv6_chunked_jnp` over `_chunk_math`), kept with the same math so that
@@ -32,8 +36,53 @@ from . import _build
 from .ref import ref_wkv6
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_K = 64       # the kernel keeps K state values a thread in registers
-MAX_HEAD_V = 1024     # one thread per column, at most 128 columns a block
+MAX_HEAD_K = 64       # the kernel's rows are padded to 16, 32 or 64
+MAX_HEAD_V = 1024     # columns of a head, in tiles of TILES a block
+TILES = (16, 32, 64)  # column tiles of a block (csrc/wkv6.cu: MAX_TILE)
+TARGET_BLOCKS = 256   # two blocks per SM of the H100's 132
+DECODE_MAX_T = 4      # longer calls take the chunked variant
+CHUNK = 32            # tokens a cp.async stage of the chunked variant
+SUB_CHUNK = 16        # tokens a sub-chunk: pairs inside it decay directly
+CHUNKED_THREADS = 256
+_VARIANT_CODE = {"decode": 0, "chunked": 1}
+
+
+def wkv6_geometry(B: int, T: int, H: int, K: int, V: int) -> dict:
+    """The launch shape of the CUDA kernel for r ``[B, T, H, K]`` and v
+    ``[B, T, H, V]``.
+
+    The tile is the narrowest of ``TILES`` that holds V (64 for wider V),
+    halved while the grid of ``B·H·ceil(V/tile)`` blocks is below
+    ``TARGET_BLOCKS`` and the tile is wider than 16 columns; ``tiles``
+    tiles cover the V columns exactly once.  Rows are padded to ``kmax`` in
+    {16, 32, 64}.  T ≤ ``DECODE_MAX_T`` takes ``"decode"``: a thread owns 4
+    rows × 4 columns, so ``kmax / 4`` threads share a column.  Longer T
+    takes ``"chunked"``: ``CHUNKED_THREADS`` threads, chunks of ``chunk``
+    tokens in sub-chunks of ``sub_chunk``; the state's rows × 4 columns
+    are held by the first threads, 2 rows a thread (4 at the widest tile
+    and K > 32).  → dict with ``variant``, ``tile``, ``tiles``, ``blocks``,
+    ``threads``, ``threads_per_column``, ``rows_per_thread``, ``kmax``,
+    ``chunk`` and ``sub_chunk`` (None for decode)."""
+    if min(B, T, H, K, V) < 1 or K > MAX_HEAD_K or V > MAX_HEAD_V:
+        raise ValueError(f"no wkv6 launch for B={B} T={T} H={H} K={K} V={V}"
+                         f" (K ≤ {MAX_HEAD_K}, V ≤ {MAX_HEAD_V})")
+    kmax = next(n for n in (16, 32, 64) if K <= n)
+    tile = next((n for n in TILES if V <= n), TILES[-1])
+    while tile > TILES[0] and B * H * -(-V // tile) < TARGET_BLOCKS:
+        tile //= 2
+    tiles = -(-V // tile)
+    geo = {"tile": tile, "tiles": tiles, "blocks": B * H * tiles,
+           "kmax": kmax}
+    if T <= DECODE_MAX_T:
+        return {"variant": "decode", **geo,
+                "threads": tile // 4 * (kmax // 4),
+                "threads_per_column": kmax // 4, "rows_per_thread": 4,
+                "chunk": None, "sub_chunk": None}
+    quads = kmax * tile // 4
+    rows = quads // CHUNKED_THREADS if quads >= 2 * CHUNKED_THREADS else 2
+    return {"variant": "chunked", **geo, "threads": CHUNKED_THREADS,
+            "threads_per_column": kmax // rows, "rows_per_thread": rows,
+            "chunk": CHUNK, "sub_chunk": SUB_CHUNK}
 
 
 def _chunk_math(r, k, v, logw, u, S0):
@@ -90,7 +139,7 @@ def wkv6_chunked(r, k, v, logw, u, state=None, *, chunk: int = 64):
 def _kernel_fn():
     fn = _build.load("wkv6").wkv6_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -99,7 +148,8 @@ def _kernel_fn():
 def wkv6_cuda(r, k, v, logw, u, state=None):
     """r, k, logw: [B, T, H, K]; v: [B, T, H, V]; u: [H, K]; state
     [B, H, K, V] or None (zeros) → (o [B, T, H, V] in r's dtype,
-    S_T [B, H, K, V] fp32), on the CUDA kernel.
+    S_T [B, H, K, V] fp32), on the CUDA kernel in the variant and tile of
+    `wkv6_geometry`.
 
     r, k and v share one dtype, fp32 or bf16; logw is fp32 or bf16; each is
     read in its own dtype and the sums are fp32.  u and the state are fp32.
@@ -144,9 +194,13 @@ def wkv6_cuda(r, k, v, logw, u, state=None):
     if not 1 <= K <= MAX_HEAD_K or not 1 <= V <= MAX_HEAD_V:
         raise ValueError(f"head sizes K={K}, V={V} outside the kernel's "
                          f"1..{MAX_HEAD_K} and 1..{MAX_HEAD_V}")
-    if min(B, T, H) < 1 or B * H > 2 ** 31 - 1:
+    if min(B, T, H) < 1:
         raise ValueError(f"shape outside the kernel's launch grid: r "
                          f"{tuple(r.shape)}")
+    geo = wkv6_geometry(B, T, H, K, V)
+    if geo["blocks"] > 2 ** 31 - 1:
+        raise ValueError(f"shape outside the kernel's launch grid: r "
+                         f"{tuple(r.shape)}, {geo['blocks']} blocks")
     o = torch.empty((B, T, H, V), dtype=r.dtype, device=r.device)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -154,7 +208,9 @@ def wkv6_cuda(r, k, v, logw, u, state=None):
                        logw.data_ptr(), u.data_ptr(),
                        None if state is None else state.data_ptr(),
                        o.data_ptr(), s_out.data_ptr(), B, T, H, K, V,
-                       _DTYPE_CODE[r.dtype], _DTYPE_CODE[logw.dtype], stream)
+                       _DTYPE_CODE[r.dtype], _DTYPE_CODE[logw.dtype],
+                       _VARIANT_CODE[geo["variant"]], geo["tile"], CHUNK,
+                       SUB_CHUNK, stream)
     if err != 0:
         raise RuntimeError(f"wkv6 CUDA launch failed: cudaError {err}")
     wkv6_cuda.launches += 1
