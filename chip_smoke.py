@@ -125,10 +125,36 @@ goes wrong:
      mean stands in for the missing ones).  No single
      PyTorch call computes the recurrence, so there is no library time.
      Then log_matmul over rwkv6-1.6b's 192 products at M = 4 and 16, read
-     as in 10.
+     as in 10;
+ 14. the hardware oracle at the paper's layer sizes: VGG-16's 13 convs at
+     224 px (`accelerator.vgg16_layers`, input padded by the layer's pad,
+     VALID, batch 1), MobileNet v1's stride-2 depthwise layer at 112 x 112 x
+     64 and its 1x1 layer at 14 x 14 x 512 -> 512, |normal| activations and
+     normal weights from a numpy seed, through `PEGrid(mode="log",
+     quant_cfg=LogQuantConfig(per_channel=False), out_frac_bits=16)` on the
+     card.  The conv kernel (one launch a layer) on the dequantized x and
+     the packed per-tensor weights must agree with the grid within
+     5e-3 * (max|y| + 1) (`tests/test_conv2d.py`), its error printed as a
+     share of the LUT bound 1.5 * taps * 2^-16 * xscale * wscale; the
+     dataflow model's cycles must lie in [0.6, 1] x the grid's on each
+     VGG-16 layer (`tests/test_pe_grid.py`; printed for the other two).  A
+     medium layer (56 x 56 padded to 58, 64 -> 32) runs on the card and on
+     the CPU: equal GridStats, y within 1e-6 * (max|y| + 1), and one band's
+     `cycle_psums_batch` psums bit-identical.  Per layer: grid ms on the
+     card, thread products, grid and model cycles, the modelled FPGA's
+     latency;
+ 15. the end-to-end example (`repro_torch.examples.cnn_accelerator_sim`)
+     on the card: 250 QAT steps of the tiny SqueezeNet, packed serving
+     through the conv kernel (26 launches a forward) within the example's
+     drift limit 1e-3 * (max|l| + 1) of the fake-quant logits, and the
+     dataflow walk of the four nets (the modelled Zynq-7020).  The same
+     250 steps run on the CPU too, and that model, moved to the card, is
+     served through the kernel under the same checks.  Each trained model
+     must have learned: its fake-quant logits differ between images and
+     across classes, and its train accuracy exceeds chance (1/8) by 1/16.
 
-Phases 5, 9 and 12 drive the main paths: the kernels' launch counts are set
-to 0 just before each and read just after.
+Phases 5, 9, 12, 14 and 15 drive the main paths: the kernels' launch counts
+are set to 0 just before each and read just after.
 
 The build log must show the log_conv2d and log_matmul kernels at no more
 than 128 registers a thread, the attention and wkv6 kernels at no more
@@ -1746,6 +1772,242 @@ def phase_wkv6_times(dev, engine) -> dict:
     return out
 
 
+# the hardware oracle's layers (phase 14): VGG-16's 13 convs at 224 px, and
+# MobileNet v1's first stride-2 depthwise layer and a 14x14 1x1 layer
+ORACLE_MOBILENET = ("DW2", "PW7")
+# one medium layer run on both the card and the CPU (<= 1e8 thread products):
+# 56 x 56 (padded to 58), 64 -> 32 channels, 11 groups of which the last
+# holds 4 channels, 10 bands
+ORACLE_CPU_LAYER = (58, 58, 64, 32)
+
+
+def _grid_run(grid, spec, x, w):
+    """One layer through the grid → (y, GridStats, grid ms by the host
+    clock around a synchronised call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if spec.kind == "dwconv":
+        y, stats = grid.conv2d_depthwise(x, w, stride=spec.stride)
+    elif spec.kind == "pwconv":
+        y, stats = grid.conv2d_1x1(x, w)
+    else:
+        y, stats = grid.conv2d(x, w, stride=spec.stride)
+    torch.cuda.synchronize()
+    return y, stats, (time.perf_counter() - t0) * 1e3
+
+
+def _oracle_inputs(spec, rng):
+    """|normal| (post-ReLU) activations padded by the layer's pad, normal
+    weights: numpy float32."""
+    x = np.abs(rng.normal(size=(spec.H, spec.W, spec.C))).astype(np.float32)
+    p = spec.pad
+    x = np.pad(x, ((p, p), (p, p), (0, 0)))
+    if spec.kind == "dwconv":
+        w = rng.normal(size=(3, 3, spec.C))
+    elif spec.kind == "pwconv":
+        w = rng.normal(size=(spec.C, spec.P))
+    else:
+        w = rng.normal(size=(spec.K, spec.K, spec.C, spec.P))
+    return x, w.astype(np.float32)
+
+
+def phase_oracle(dev) -> dict:
+    """14: the hardware oracle at the paper's layer sizes, B1 against it, the
+    dataflow model against its cycle counts, and the oracle on the card
+    against the oracle on the CPU."""
+    from repro_torch.core import accelerator
+    from repro_torch.core.dataflow import LayerSpec, analyze_layer
+    from repro_torch.core.logquant import LogQuantConfig, quantize_tensor
+    from repro_torch.core.pe_grid import PEGrid
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    cfg = LogQuantConfig(per_channel=False)
+    grid = PEGrid(mode="log", quant_cfg=cfg, out_frac_bits=16)
+    if grid.device.type != "cuda":
+        fail(f"the grid runs on {grid.device}, not the card")
+    mobilenet = {s.name: s for s in accelerator.mobilenet_v1_layers()}
+    specs = accelerator.vgg16_layers() + [mobilenet[n]
+                                          for n in ORACLE_MOBILENET]
+    rows = []
+    log_conv2d_fused.launches = 0   # the oracle path: one B1 launch a layer
+    for i, spec in enumerate(specs):
+        x, w = _oracle_inputs(spec, np.random.default_rng(SEED + 100 + i))
+        y, stats, grid_ms = _grid_run(grid, spec, x, w)
+        _, _, _, xscale, xd = grid._codes(x)
+        wscale = grid._codes(w)[3]
+        if spec.kind == "dwconv":
+            w4, groups, taps = w[:, :, None, :], spec.C, 9
+        elif spec.kind == "pwconv":
+            w4, groups, taps = w[None, None], 1, spec.C
+        else:
+            w4, groups, taps = w, 1, 9 * spec.C
+        qt = quantize_tensor(torch.as_tensor(w4, device=dev), cfg)
+        before = log_conv2d_fused.launches
+        y_b1 = ops.conv2d(xd[None], qt, stride=spec.stride, padding="VALID",
+                          groups=groups, impl="cuda")[0]
+        torch.cuda.synchronize()
+        if log_conv2d_fused.launches - before != 1:
+            fail(f"oracle {spec.name}: B1 launched "
+                 f"{log_conv2d_fused.launches - before} times, expected 1")
+        if y_b1.shape != y.shape or not bool(torch.isfinite(y).all()):
+            fail(f"oracle {spec.name}: grid {tuple(y.shape)}, B1 "
+                 f"{tuple(y_b1.shape)}, or a non-finite grid output")
+        err = float((y_b1 - y).abs().max())
+        tol = 5e-3 * (float(y.abs().max()) + 1)   # tests/test_conv2d.py:235
+        lut_bound = 1.5 * taps * 2.0 ** -16 * xscale * wscale
+        model = analyze_layer(spec)
+        ratio = model.cycles / stats.cycles
+        row = {"layer": spec.name, "kind": spec.kind, "in": [spec.H, spec.W,
+               spec.C], "out_channels": spec.P, "stride": spec.stride,
+               "grid_ms": grid_ms, "thread_products":
+               stats.active_thread_cycles, "useful_macs": stats.useful_macs,
+               "grid_cycles": stats.cycles, "model_cycles": model.cycles,
+               "model_over_grid": ratio,
+               "modelled_fpga_ms": model.latency_ms, "b1_err": err,
+               "tol": tol, "lut_bound": lut_bound,
+               "err_over_lut_bound": err / lut_bound,
+               "max_abs_y": float(y.abs().max())}
+        rows.append(row)
+        print(f"oracle {spec.name:8s} {spec.kind:6s} {spec.H}x{spec.W}x"
+              f"{spec.C}->{spec.P} s{spec.stride}: grid {grid_ms:.1f} ms on "
+              f"the card, {stats.active_thread_cycles:,} thread products, "
+              f"cycles grid {stats.cycles:,} model {model.cycles:,} (ratio "
+              f"{ratio:.4f}), modelled FPGA (Zynq-7020, 200 MHz) "
+              f"{model.latency_ms:.3f} ms; |B1 - grid| {err:.3e} (tol "
+              f"{tol:.3e}, {err / lut_bound:.4f} of the LUT bound "
+              f"{lut_bound:.3e})")
+        if err > tol:
+            fail(f"oracle {spec.name}: |B1 - grid| {err:.3e} > tol {tol:.3e}")
+        if spec.kind == "conv" and not 0.6 * stats.cycles <= model.cycles \
+                <= stats.cycles:   # tests/test_pe_grid.py:107-108
+            fail(f"oracle {spec.name}: model cycles {model.cycles} outside "
+                 f"[0.6, 1] x grid cycles {stats.cycles}")
+    launches = log_conv2d_fused.launches
+    if launches != len(specs):
+        fail(f"oracle: B1 launched {launches} times for {len(specs)} layers")
+
+    # the same grid on the CPU, at a medium layer
+    H, W, C, P = ORACLE_CPU_LAYER
+    spec = LayerSpec("MEDIUM", "conv", H, W, C, P, K=3, pad=0)
+    x, w = _oracle_inputs(spec, np.random.default_rng(SEED + 200))
+    cpu_grid = PEGrid(mode="log", quant_cfg=cfg, out_frac_bits=16,
+                      device="cpu")
+    codes = [[g._codes(t)[0].cpu() for t in (x, w)]
+             for g in (grid, cpu_grid)]
+    code_diff = [int((a != b).sum()) for a, b in zip(*codes)]
+    y_card, s_card, card_ms = _grid_run(grid, spec, x, w)
+    t0 = time.perf_counter()
+    y_cpu, s_cpu = cpu_grid.conv2d(x, w)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err = float((y_card.cpu() - y_cpu).abs().max())
+    tol = 1e-6 * (float(y_cpu.abs().max()) + 1)
+    # one band's integer psums (every position and channel, filter 0) from
+    # the same codes through cycle_psums_batch on both devices
+    xc, _, _, _, _ = cpu_grid._codes(x)
+    wc, ws, _, _, _ = cpu_grid._codes(w)
+    band = slice(6, 12)
+    win = torch.as_tensor(x[band]).unfold(1, 3, 1).permute(1, 2, 0, 3)
+    cwin = xc[band].unfold(1, 3, 1).permute(1, 2, 0, 3)
+    wt = torch.as_tensor(w[..., 0]).permute(2, 0, 1)
+    psums = [g.matrix.cycle_psums_batch(
+        win.to(g.device), wt.to(g.device), window_codes=cwin.to(g.device),
+        w_codes=wc[..., 0].permute(2, 0, 1).to(g.device),
+        w_signs=ws[..., 0].permute(2, 0, 1).to(g.device)).cpu()
+        for g in (grid, cpu_grid)]
+    same_psums = torch.equal(*psums)
+    medium = {"layer": list(ORACLE_CPU_LAYER),
+              "thread_products": s_cpu.active_thread_cycles,
+              "card_ms": card_ms, "cpu_ms": cpu_ms, "y_err": err, "tol": tol,
+              "stats_equal": s_card == s_cpu, "code_differences": code_diff,
+              "band_psums": list(psums[1].shape),
+              "band_psums_identical": same_psums}
+    print(f"oracle card vs CPU at {H}x{W}x{C}->{P} "
+          f"({s_cpu.active_thread_cycles:,} thread products): card "
+          f"{card_ms:.1f} ms, CPU {cpu_ms:.1f} ms; GridStats equal "
+          f"{s_card == s_cpu}; |y_card - y_cpu| {err:.3e} (tol {tol:.3e}); "
+          f"codes that differ (x, w) {code_diff}; cycle_psums_batch of one "
+          f"band {list(psums[1].shape)} identical {same_psums}")
+    if s_card != s_cpu or err > tol or not same_psums:
+        fail(f"oracle card vs CPU: {medium}")
+    return {"layers": rows, "launches": launches, "card_vs_cpu": medium,
+            "grid_ms": sum(r["grid_ms"] for r in rows)}
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    return tree.detach().to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _served_on_card(ex, name, params, apply_fn, batch, acc) -> dict:
+    """One trained example model: it must have learned (logits that differ
+    between images and across classes, train accuracy above chance by
+    1/16), then its packed serving through B1 must stay within the
+    example's drift limit with 26 launches."""
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    with torch.no_grad():
+        logits = apply_fn(params, batch["images"])
+    spread_img = float((logits - logits[:1]).abs().max())
+    spread_cls = float((logits - logits[:, :1]).abs().max())
+    floor = 1.0 / ex.N_CLASSES + 1.0 / 16
+    if not (spread_img > 0 and spread_cls > 0 and acc > floor):
+        fail(f"example ({name}): the trained net learned nothing: train acc "
+             f"{acc} (must exceed {floor}), logit spread over images "
+             f"{spread_img}, over classes {spread_cls}")
+    log_conv2d_fused.launches = 0   # the example's packed forward
+    served = ex.serve_packed(params, apply_fn, batch)
+    torch.cuda.synchronize()
+    launches = log_conv2d_fused.launches
+    if launches != CONVS_PER_NET["squeezenet"]:
+        fail(f"example ({name}): B1 launched {launches} times in a packed "
+             f"forward, expected {CONVS_PER_NET['squeezenet']}")
+    if not abs(served["acc"] - acc) < 0.2:
+        fail(f"example ({name}): packed serving acc {served['acc']} against "
+             f"train acc {acc}")
+    return {**served, "launches": launches}
+
+
+def phase_example(dev) -> dict:
+    """15: the end-to-end example on the card: QAT, packed serving through
+    B1, the dataflow walk; and a second, CPU-trained model served through
+    B1 on the card."""
+    from repro_torch.examples import cnn_accelerator_sim as ex
+    t0 = time.perf_counter()
+    loss, acc, params, apply_fn, batch = ex.train_quantized_cnn()
+    if params["stem"]["w"].device.type != "cuda" or \
+            not np.isfinite(loss):
+        fail(f"example: trained on {params['stem']['w'].device}, loss {loss}")
+    train_s = time.perf_counter() - t0
+    served = _served_on_card(ex, "card-trained", params, apply_fn, batch,
+                             acc)
+    perf = ex.dataflow_walk()
+    out = {"train_loss": loss, "train_acc": acc, "train_s": train_s,
+           "serve_acc": served["acc"], "drift": served["drift"],
+           "drift_limit": served["limit"], "launches": served["launches"],
+           "wall_s": time.perf_counter() - t0,
+           "modelled_fpga_ms": {n: p.latency_ms for n, p in perf.items()}}
+    print(f"example: 250 QAT steps in {train_s:.1f} s, train loss {loss:.4f}"
+          f" acc {acc:.4f}; packed serving acc {served['acc']:.4f}, drift "
+          f"{served['drift']:.3e} (limit {served['limit']:.3e}), "
+          f"{served['launches']} B1 launches; wall {out['wall_s']:.1f} s")
+    t1 = time.perf_counter()
+    loss_c, acc_c, params_c, _, batch_c = ex.train_quantized_cnn(
+        device="cpu")
+    cpu_s = time.perf_counter() - t1
+    served_c = _served_on_card(ex, "CPU-trained", _to_device(params_c, dev),
+                               apply_fn, _to_device(batch_c, dev), acc_c)
+    out["cpu_trained"] = {"train_loss": loss_c, "train_acc": acc_c,
+                          "train_s": cpu_s, **served_c}
+    print(f"example, CPU-trained model served on the card: train loss "
+          f"{loss_c:.4f} acc {acc_c:.4f} ({cpu_s:.1f} s); packed serving acc "
+          f"{served_c['acc']:.4f}, drift {served_c['drift']:.3e} (limit "
+          f"{served_c['limit']:.3e}), {served_c['launches']} B1 launches")
+    out["launches"] += served_c["launches"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -1797,6 +2059,8 @@ def main() -> int:
     wk_times = phase_wkv6_times(dev, rw_engine)
     rw_mm_times = phase_matmul_times(dev, rw_engine, RWKV_ARCH)
     del rw_engine
+    oracle = phase_oracle(dev)
+    example = phase_example(dev)
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "event_ms", "plain_ms", "library_ms",
@@ -1814,9 +2078,13 @@ def main() -> int:
                 "library_ms": t["library_ms"], **extra}
 
     mm = lm_times[f"log_matmul M={lm['args']['max_batch']}"]
+    conv_launches = {"cnn_slice": launches, "oracle": oracle["launches"],
+                     "example": example["launches"]}
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
-            "src/repro/kernels/log_conv2d.py:491", launches, max_err, tot,
+            "src/repro/kernels/log_conv2d.py:491",
+            launches, max_err, tot,
+            launches_by_path=conv_launches,
             time=f"device time by torch.profiler, sum over the "
             f"{sum(CONVS_PER_NET.values())} convs of one forward of each "
             f"net, each conv timed alone; plain_ms and "
@@ -1867,7 +2135,8 @@ def main() -> int:
          "log_matmul_checks": mm_rows, "attention_checks": at_rows,
          "lm_slice": lm, "lm_times": lm_times, "wkv6_checks": wk_rows,
          "rwkv_slice": rw, "wkv6_times": wk_times,
-         "rwkv_log_matmul_times": rw_mm_times,
+         "rwkv_log_matmul_times": rw_mm_times, "oracle": oracle,
+         "example": example,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -1880,7 +2149,9 @@ def main() -> int:
           f"log_matmul "
           f"launches are those of both LM main "
           f"paths ({lm['launches']['log_matmul']} + "
-          f"{rw['launches']['log_matmul']})")
+          f"{rw['launches']['log_matmul']}); log_conv2d launches those of "
+          f"the CNN slice, whose convs its times cover (the oracle's and the "
+          f"example's in launches_by_path: {conv_launches})")
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -30,10 +30,13 @@
 //   * exact operands on the tensor cores: a decoded code is s*2^e (even
 //     code) or s*sqrt(2)*2^e (odd code), so dec(c) = W_e(c) + sqrt(2)*W_o(c)
 //     with two planes that each hold +-2^e or 0, exact bf16 numbers.  x is
-//     split into x_hi = bf16(x) and x_lo = bf16(x - x_hi) (about 2^-17
-//     relative left out).  mma.sync m16n8k16 (bf16 in, fp32 sums) takes the
-//     four products x_hi*W_e, x_lo*W_e into acc_e and x_hi*W_o, x_lo*W_o
-//     into acc_o; the epilogue forms scale * (acc_e + fp32(sqrt(2))*acc_o).
+//     split into three bf16 pieces, x_hi = bf16(x), x_mid = bf16(x - x_hi)
+//     and x_lo = bf16(x - x_hi - x_mid), whose sum is x exactly (8
+//     significant bits a piece cover fp32's 24; two pieces left 2^-17 of x
+//     out, enough to flip a log code of the next layer's input in a
+//     trained net).  mma.sync m16n8k16 (bf16 in, fp32 sums) takes the six
+//     products of the pieces with W_e into acc_e and with W_o into acc_o;
+//     the epilogue forms scale * (acc_e + fp32(sqrt(2))*acc_o).
 //     With x = 1 this is fp32(sqrt(2))*2^e, the exact decode.  The planes
 //     come from a table, two bf16 bit patterns a code, that the wrapper
 //     builds in PyTorch (`plane_table`) and the block stages in shared
@@ -43,15 +46,16 @@
 //     order).  A block of 8 warps owns a 128 x 64 tile inside one group
 //     (a warp 32 x 32) and walks R in stages of 32;
 //   * loads under the math: raw stages (x as fp32, codes as int8) stream
-//     through a ring of 3 in shared memory, three stages ahead of the
+//     through a ring of 2 in shared memory, two stages ahead of the
 //     tensor cores.  Where cin_g % 16 == 0 (every dense conv of the four
 //     nets but the C = 3 stems) each 16-index chunk of a stage lies in one
 //     tap, so a pixel's chunk is 64 contiguous bytes of x: 16-byte cp.async
 //     copies, zero-filled for taps outside the image.  The codes go by
 //     16-byte cp.async where the strides allow.  Other shapes gather with
 //     bounds checks into the same layout;
-//   * one conversion a stage: all threads split the stage's x into bf16
-//     hi/lo and decode its codes into the two planes once, into a double
+//   * one conversion a stage: all threads split the stage's x into its
+//     three bf16 pieces and decode its codes into the two planes once, into
+//     a double
 //     buffer of swizzled operand tiles that ldmatrix reads without bank
 //     conflicts; one barrier a stage;
 //   * filling 132 SMs: `log_conv2d_geometry` (kernels/log_conv2d.py) splits
@@ -61,8 +65,9 @@
 //     block) sums them in split order, applies the scale and writes y.  No
 //     float atomics: the same inputs give the same bits on every run, and a
 //     conv is one launch;
-//   * occupancy: 256 threads at <= 128 registers and 105 KB of shared
-//     memory, two blocks an SM.
+//   * occupancy: 256 threads at <= 128 registers and 103 KB of shared
+//     memory, two blocks an SM (the third piece's tiles took the third
+//     raw stage's room).
 // The depthwise path (cin_g == 1, MobileNet's 13 depthwise convs) does
 // 2*K*K FLOP per output value against 8 bytes of x and y, so it is bound by
 // bytes; the tensor cores have nothing to do there.  Its design:
@@ -104,7 +109,7 @@ constexpr int NT = 256;   // threads per block of the dense path
 constexpr int BM = 128;   // output pixels per block
 constexpr int BN = 64;    // output channels per block (within one group)
 constexpr int BK = 32;    // reduction indices per stage
-constexpr int RING = 3;   // raw stages in shared memory
+constexpr int RING = 2;   // raw stages in shared memory
 constexpr int MAX_ENTRIES = 256;  // plane-table entries, 2^(bits+1)
 
 // dynamic shared memory, in bytes
@@ -113,11 +118,12 @@ constexpr int RAW_B = BK * BN;               // int8 codes, [BK][BN]
 constexpr int OP_A = BM * BK * 2;            // one bf16 piece, [BM][BK]
 constexpr int OP_B = BK * BN * 2;            // one bf16 plane, [BK][BN]
 constexpr int OFF_RAW_B = RING * RAW_A;
-constexpr int OFF_OP_A = OFF_RAW_B + RING * RAW_B;  // [2 bufs][hi, lo]
-constexpr int OFF_OP_B = OFF_OP_A + 2 * 2 * OP_A;   // [2 bufs][e, o]
+constexpr int PIECES = 3;  // bf16 pieces of x: hi, mid, lo
+constexpr int OFF_OP_A = OFF_RAW_B + RING * RAW_B;  // [2 bufs][pieces]
+constexpr int OFF_OP_B = OFF_OP_A + 2 * PIECES * OP_A;  // [2 bufs][e, o]
 constexpr int OFF_TAB = OFF_OP_B + 2 * 2 * OP_B;
 constexpr int OFF_ROWS = OFF_TAB + MAX_ENTRIES * 4;
-constexpr int SMEM = OFF_ROWS + BM * 16;            // 107520
+constexpr int SMEM = OFF_ROWS + BM * 16;            // 105472
 
 constexpr float SQRT2 = 1.41421356237309515f;  // fp32(sqrt(2)), as the LUT
 
@@ -291,7 +297,8 @@ __device__ __forceinline__ void load_w(uint8_t* dst,
   }
 }
 
-// A raw stage → bf16 operand tiles: x → (hi, lo), codes → planes (e, o).
+// A raw stage → bf16 operand tiles: x → (hi, mid, lo), codes → planes
+// (e, o).
 __device__ __forceinline__ void convert(const float* ra, const uint8_t* rb,
                                         char* oa, char* ob,
                                         const uint32_t* tab, uint32_t emask,
@@ -302,20 +309,21 @@ __device__ __forceinline__ void convert(const float* ra, const uint8_t* rb,
   ra += (tid >> 3) * BK + q * 4;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float4 v = *reinterpret_cast<const float4*>(ra + j * 32 * BK);
-    const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
-    const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
-    const float2 f01 = __bfloat1622float2(h01);
-    const float2 f23 = __bfloat1622float2(h23);
-    const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
-    const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+    float4 v = *reinterpret_cast<const float4*>(ra + j * 32 * BK);
     const int off = a0 + j * 32 * 64;
-    *reinterpret_cast<uint2*>(oa + off) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&h01),
-                   *reinterpret_cast<const uint32_t*>(&h23));
-    *reinterpret_cast<uint2*>(oa + OP_A + off) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&l01),
-                   *reinterpret_cast<const uint32_t*>(&l23));
+    // each piece is bf16 of what the pieces before it left; the
+    // subtractions are exact
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p) {
+      const __nv_bfloat162 b01 = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 b23 = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(oa + p * OP_A + off) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&b01),
+                     *reinterpret_cast<const uint32_t*>(&b23));
+      const float2 f01 = __bfloat1622float2(b01);
+      const float2 f23 = __bfloat1622float2(b23);
+      v = make_float4(v.x - f01.x, v.y - f01.y, v.z - f23.x, v.w - f23.y);
+    }
   }
   // codes: eight a thread, row tid >> 3, columns 8 (tid & 7); an entry is
   // (even-plane bf16) | (odd-plane bf16) << 16
@@ -439,11 +447,11 @@ log_conv2d_dense_kernel(const float* __restrict__ x,
     cp_async_commit();
 
     if (wcols > 0) {
-      const uint32_t pa = a_base + (t & 1) * 2 * OP_A;
+      const uint32_t pa = a_base + (t & 1) * PIECES * OP_A;
       const uint32_t pb = b_base + (t & 1) * 2 * OP_B;
-      // B fragments once per k16, A once per (k16, 16-row tile), within 128
-      // registers; the x_hi products of a row tile go before its x_lo ones,
-      // so that two products into one accumulator are not back to back
+      // B fragments once per k16, A once per (k16, 16-row tile, piece),
+      // within 128 registers; a row tile's products go piece by piece, so
+      // that two products into one accumulator are not back to back
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         uint32_t be[2][4], bo[2][4];
@@ -455,25 +463,19 @@ log_conv2d_dense_kernel(const float* __restrict__ x,
         }
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          uint32_t ah[4], al[4];
           const uint32_t aoff = (a0 ^ (kk << 5)) + mt * 16 * 64;
-          ldmatrix_x4(ah, pa + aoff);
-          ldmatrix_x4(al, pa + OP_A + aoff);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if (wcols <= nt * 8) continue;
-            const uint32_t* e = be[nt >> 1] + 2 * (nt & 1);
-            const uint32_t* o = bo[nt >> 1] + 2 * (nt & 1);
-            mma_bf16(acc_e[mt][nt], ah, e[0], e[1]);
-            mma_bf16(acc_o[mt][nt], ah, o[0], o[1]);
-          }
+          for (int p = 0; p < PIECES; ++p) {
+            uint32_t a[4];
+            ldmatrix_x4(a, pa + p * OP_A + aoff);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if (wcols <= nt * 8) continue;
-            const uint32_t* e = be[nt >> 1] + 2 * (nt & 1);
-            const uint32_t* o = bo[nt >> 1] + 2 * (nt & 1);
-            mma_bf16(acc_e[mt][nt], al, e[0], e[1]);
-            mma_bf16(acc_o[mt][nt], al, o[0], o[1]);
+            for (int nt = 0; nt < 4; ++nt) {
+              if (wcols <= nt * 8) continue;
+              const uint32_t* e = be[nt >> 1] + 2 * (nt & 1);
+              const uint32_t* o = bo[nt >> 1] + 2 * (nt & 1);
+              mma_bf16(acc_e[mt][nt], a, e[0], e[1]);
+              mma_bf16(acc_o[mt][nt], a, o[0], o[1]);
+            }
           }
         }
       }
@@ -481,7 +483,8 @@ log_conv2d_dense_kernel(const float* __restrict__ x,
     if (t + 1 < nst) {
       const int slot = (t + 1) % RING;
       convert(raw_a + slot * (BM * BK), raw_b + slot * RAW_B,
-              op_a + ((t + 1) & 1) * 2 * OP_A, op_b + ((t + 1) & 1) * 2 * OP_B,
+              op_a + ((t + 1) & 1) * PIECES * OP_A,
+              op_b + ((t + 1) & 1) * 2 * OP_B,
               tab, emask, tid);
     }
   }

@@ -8,8 +8,8 @@ contract (`kernels/ops.conv2d` dispatches between them):
     `log_conv2d_fused_pallas`.  It reads the int8 codes as stored (natural
     HWIO or lane-packed), decodes them next to the tensor cores into two
     exact bf16 planes (`plane_table`), multiplies them with x split into
-    bf16 hi and lo pieces, sums in fp32 and applies √2 and the per-channel
-    scale in the epilogue.  Its launch shape (tile, shares of the reduction)
+    three bf16 pieces that sum to x exactly, sums in fp32 and applies √2
+    and the per-channel scale in the epilogue.  Its launch shape (tile, shares of the reduction)
     comes from the plain `log_conv2d_geometry`.  On a CPU tensor it runs
     the plain `log_conv2d_blockwise` instead; on a CUDA tensor it launches
     the kernel or raises.

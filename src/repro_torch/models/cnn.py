@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.logquant import DEFAULT as LOGQ_DEFAULT
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        fake_log_quant, quantize_tensor)
@@ -72,7 +73,8 @@ def conv2d(p, x, *, stride=1, pad="SAME", quant=None, qcfg=LOGQ_DEFAULT,
 def _randn(gen, shape, device):
     if torch.device(device).type == "meta":  # shape tracing: no values
         return torch.empty(shape, device=device)
-    return torch.randn(shape, generator=gen, device=device)
+    # drawn on the CPU, so that a seed gives the same weights on every device
+    return torch.randn(shape, generator=gen).to(device)
 
 
 def conv_init(gen, k, cin, cout, groups=1, *, device="cpu"):
@@ -272,26 +274,16 @@ CNNS = {
 CNN_ZOO = CNNS  # the paper's four networks
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card: raises when there is no CUDA device, rather
-    than running on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 def make_cnn(name: str, seed: int = 0, *, n_classes=1000, cin=3,
              width_mult=1.0, quant=None, qcfg=LOGQ_DEFAULT, conv_impl=None,
              device=None):
-    """Random weights from ``seed`` on ``device`` (default: the card) →
-    ``(params, apply)`` with ``apply(params, x)`` giving logits."""
+    """Random weights from ``seed`` (the same on every device) on
+    ``device`` (default: the card) → ``(params, apply)`` with
+    ``apply(params, x)`` giving logits."""
     device = resolve_device(device)
     init, apply = CNNS[name]
     gen = (None if device.type == "meta"
-           else torch.Generator(device=device).manual_seed(seed))
+           else torch.Generator().manual_seed(seed))
     params = init(gen, n_classes=n_classes, cin=cin, width_mult=width_mult,
                   device=device)
     return params, functools.partial(apply, quant=quant, qcfg=qcfg,

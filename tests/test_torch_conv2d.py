@@ -300,10 +300,33 @@ def test_conv_geometry_covers_r_and_fills_the_card(n_sm):
         tlc.log_conv2d_geometry(1, 4, 4, 6, 3, 4, groups=4)
 
 
+def _x_pieces(x, n=3):
+    """The dense kernel's split of fp32 x: each bf16 piece rounds what the
+    pieces before it left."""
+    pieces = []
+    for _ in range(n):
+        pieces.append(x.to(torch.bfloat16).float())
+        x = x - pieces[-1]
+    return pieces
+
+
+def test_three_bf16_pieces_hold_x_exactly():
+    """Three pieces sum to x bit for bit over fp32's normal range; two
+    leave up to about 2^-17 of x out, which is why the kernel takes three."""
+    rng = np.random.default_rng(5)
+    x = (rng.uniform(1, 2, 1 << 16) * 2.0 ** rng.integers(-100, 100, 1 << 16)
+         * rng.choice([-1, 1], 1 << 16)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    hi, mid, lo = _x_pieces(xt)
+    assert torch.equal((hi + mid) + lo, xt)
+    rel = ((xt - (hi + mid)).abs() / xt.abs()).max()
+    assert 2.0 ** -19 < float(rel) <= 2.0 ** -16
+
+
 def _emulate_kernel(x, packed, scale, *, stride, padding, groups):
-    """The dense kernel's arithmetic in plain torch: x split into bf16 hi
-    and lo, the codes into the two bf16 planes of `plane_table`, fp32 sums
-    of the four products, then ``scale · (acc_e + fp32(√2) · acc_o)``."""
+    """The dense kernel's arithmetic in plain torch: x split into three
+    bf16 pieces, the codes into the two bf16 planes of `plane_table`, fp32
+    sums of the six products, then ``scale · (acc_e + fp32(√2) · acc_o)``."""
     cfg = tlc.DEFAULT_CFG
     B, H, W, C, K, Cout = tlc._check_shapes(x, packed, groups)
     pads = tlc.normalize_padding(padding, K, stride, H, W)
@@ -311,14 +334,13 @@ def _emulate_kernel(x, packed, scale, *, stride, padding, groups):
     entry = tab[packed.to(torch.int64) & ((2 << cfg.bits) - 1)]
     w_e, w_o = (((entry >> s) & 0xFFFF).to(torch.int16).view(torch.bfloat16)
                 .float() for s in (0, 16))
-    x_hi = x.to(torch.bfloat16).float()
-    x_lo = (x - x_hi).to(torch.bfloat16).float()
+    pieces = _x_pieces(x)
 
     def conv(a, w):
         return tlc.conv_nhwc(a, w, stride=stride, pads=pads, groups=groups)
 
-    acc_e = conv(x_hi, w_e) + conv(x_lo, w_e)
-    acc_o = conv(x_hi, w_o) + conv(x_lo, w_o)
+    acc_e = sum(conv(p, w_e) for p in pieces)
+    acc_o = sum(conv(p, w_o) for p in pieces)
     sqrt2 = torch.tensor(2.0 ** 0.5, dtype=torch.float32)
     return tlc._scale_vector(scale, Cout, x.device) * (acc_e + sqrt2 * acc_o)
 
@@ -327,7 +349,7 @@ def _emulate_kernel(x, packed, scale, *, stride, padding, groups):
                          SHAPES + LANE_SHAPES)
 def test_kernel_arithmetic_matches_jax_blockwise(B, H, W, C, K, P, stride,
                                                  padding, groups):
-    """Two exact planes and a two-piece bf16 split of x, summed in fp32,
+    """Two exact planes and a three-piece bf16 split of x, summed in fp32,
     stay within the per-conv tolerance of JAX's `log_conv2d_blockwise`."""
     x, w = _inputs(10, B, H, W, C, K, P, groups)
     x = x * np.float32(3.0) + np.float32(0.1)   # mantissas bf16 cannot hold

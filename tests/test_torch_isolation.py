@@ -60,16 +60,26 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
-    """Without a card, `make_cnn` and `params_from_numpy` raise unless the
-    caller passes ``device="cpu"``."""
+    """Without a card, `make_cnn`, `params_from_numpy`, the hardware oracle
+    (`PEGrid`, `LogPEThread`) and the end-to-end example raise unless the
+    caller asks for the CPU."""
+    from repro_torch.core.logmath import LogPEThread
+    from repro_torch.core.pe_grid import PEGrid
+    from repro_torch.examples import cnn_accelerator_sim as ex
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcnn.make_cnn("vgg16", 0, n_classes=10, width_mult=0.125)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcnn.params_from_numpy({"w": [1.0]})
+    for call in (lambda: tcnn.make_cnn("vgg16", 0, n_classes=10,
+                                       width_mult=0.125),
+                 lambda: tcnn.params_from_numpy({"w": [1.0]}),
+                 lambda: PEGrid(mode="log"), lambda: LogPEThread(),
+                 lambda: ex.train_quantized_cnn(steps=1),
+                 lambda: ex.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     params, _ = tcnn.make_cnn("vgg16", 0, n_classes=10, width_mult=0.125,
                               device="cpu")
     assert params["head"]["w"].device.type == "cpu"
+    grid = PEGrid(mode="log", device="cpu")
+    assert grid.device.type == grid.thread.lut.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):
