@@ -153,8 +153,31 @@ goes wrong:
      must have learned: its fake-quant logits differ between images and
      across classes, and its train accuracy exceeds chance (1/8) by 1/16.
 
-Phases 5, 9, 12, 14 and 15 drive the main paths: the kernels' launch counts
-are set to 0 just before each and read just after.
+ 16. the Griffin slice: recurrentgemma-2b at full width and depth (26
+     layers, pattern (rec, rec, local), LRU width 2560, local window 2048)
+     served as in 9.  Launches a forward come from the layer pattern
+     (`launches_per_forward`): log_matmul 18 rec layers x 3 FFN matrices +
+     8 local layers x 7 = 110 and attention 8 (the RG-LRU blocks keep fp32
+     weights, as in JAX, and launch no kernel); every log_matmul and
+     attention call of one prefill and one decode step is held against its
+     plain version; a plain engine gives the prefill logit difference
+     (tolerance 0.02 * (max|l| + 1)).  Prefill runs at the exact prompt
+     length (a pad token would enter the RG-LRU state);
+ 17. the MoE slice: granite-moe-3b-a800m at full width and depth (32
+     layers, 40 experts, top-8, capacity factor 1.25) served as in 9:
+     log_matmul 32 x 4 = 128 a forward (the router and the experts stay
+     fp32, as in JAX, and are cast to bf16 on every call) and attention
+     32; per-call checks as in 16.  In bf16 a rounding of a router input
+     can turn a near-tie between the 8th and 9th expert, which moves the
+     random-weight logits by O(max|l|) (as in the JAX package,
+     `tests/test_torch_moe.py`): the plain-engine logit check is held in
+     fp32 activations, and the bf16 difference is printed with the top-8
+     expert sets of both engines' prefill compared layer by layer
+     (`_routing_flips`: tokens flipped per layer, the first flip's margin
+     against the layer's median).
+
+Phases 5, 9, 12, 14, 15, 16 and 17 drive the main paths: the kernels'
+launch counts are set to 0 just before each and read just after.
 
 The build log must show the log_conv2d and log_matmul kernels at no more
 than 128 registers a thread, the attention and wkv6 kernels at no more
@@ -193,6 +216,8 @@ CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
                  "squeezenet": 26}
 LM_ARCH = "gemma-2b"
 RWKV_ARCH = "rwkv6-1.6b"
+RG_ARCH = "recurrentgemma-2b"
+MOE_ARCH = "granite-moe-3b-a800m"
 GEMMA_KN = [(2048, 2048), (2048, 256), (2048, 16384), (16384, 2048)]
 RWKV_KN = [(2048, 7168), (7168, 2048)]    # and (2048, 2048), as gemma-2b's
 MM_SHAPES = ([(128, 128, 128), (256, 384, 128), (64, 128, 256),
@@ -318,7 +343,9 @@ def profile_forward(fn) -> dict:
     return {"device_busy_ms": sum(by_name.values()),
             "device_kernels": len(kernels), "top_kernels_ms": top,
             "attention_ms": sum(ms for name, ms in by_name.items()
-                                if "attn_" in name)}
+                                if "attn_" in name),
+            "log_matmul_ms": sum(ms for name, ms in by_name.items()
+                                 if "log_matmul" in name)}
 
 
 def check_registers(log: str, limit: int) -> None:
@@ -1072,11 +1099,38 @@ def _serve_args(arch: str):
                              "--telemetry", "on"])
 
 
-# per arch: the kernel ops one layer calls per forward, and how many plain
-# versions each per-call check holds a call against
-PER_LAYER = {LM_ARCH: {"log_matmul": 7, "attention": 1},
-             RWKV_ARCH: {"log_matmul": 8, "wkv6": 1}}
+# archs whose plain-engine logit check is held in fp32 activations, with the
+# bf16 figure printed: random-weight RWKV amplifies a bf16 rounding through
+# its stack, and in random-weight MoE a rounding turns a near-tie of the
+# router, which moves the logits by O(max|l|) (both shown on the CPU for
+# the JAX package too: tests/test_torch_rwkv.py, tests/test_torch_moe.py)
+FP32_HELD = {RWKV_ARCH, MOE_ARCH}
+# how many plain versions each per-call check holds a call against
 PLAIN_CHECKS = {"log_matmul": 1, "attention": 2, "wkv6": 1}
+
+
+def launches_per_forward(cfg) -> dict:
+    """Kernel launches of one forward, counted from the layer pattern: an
+    attention layer ("attn", "local") launches log_matmul for its four
+    projections and attention once; a dense FFN launches log_matmul for
+    each matrix (3 for GeGLU / SwiGLU, else 2), a MoE FFN none (its router
+    and experts stay fp32, as in JAX); an RG-LRU mixer ("rec") launches
+    nothing; an RWKV layer launches log_matmul for its 8 projections and
+    wkv6 once.  gemma-2b: 18 x 7 = 126 and 18; rwkv6-1.6b: 192 and 24;
+    recurrentgemma-2b: 18 rec x 3 + 8 local x 7 = 110 and 8;
+    granite-moe-3b-a800m: 32 x 4 = 128 and 32."""
+    ffn = 0 if cfg.is_moe else 3 if cfg.ffn in ("swiglu", "geglu") else 2
+    n = {"log_matmul": 0, "attention": 0, "wkv6": 0}
+    for unit, n_rep in cfg.segments:
+        for kind in unit:
+            if kind == "rwkv":
+                n["log_matmul"] += 8 * n_rep
+                n["wkv6"] += n_rep
+                continue
+            attn = kind != "rec"
+            n["log_matmul"] += n_rep * (ffn + 4 * attn)
+            n["attention"] += n_rep * attn
+    return n
 
 
 def _wrappers() -> dict:
@@ -1151,12 +1205,63 @@ class _patched:
         return False
 
 
+def _traced_prefill(eng, prompt) -> tuple:
+    """``eng._prefill(0, prompt)`` → (logits, the router probabilities
+    [Tpad, E] of each MoE layer in order; empty without MoE)."""
+    from repro_torch.models import moe
+    probs, route = [], moe.route
+
+    def spy(p, xt, cfg, T, capacity=None):
+        rt = route(p, xt, cfg, T, capacity)
+        probs.append(rt["probs"].float())
+        return rt
+    moe.route = spy
+    try:
+        logits = eng._prefill(0, prompt).float()
+    finally:
+        moe.route = route
+    return logits, probs
+
+
+def _routing_flips(kern: list, plain: list, k: int, t: int) -> dict:
+    """Top-k expert sets of the kernel and the plain engine, MoE layer by
+    layer, over the ``t`` real tokens of a prefill: per layer the tokens
+    whose set differs; for the first such layer, each flipped token's
+    margin in the plain engine (log p of its k-th over its (k+1)-th
+    expert) beside the median margin of the layer's tokens, and the largest
+    move of a log-probability between the two engines, centred over the
+    experts (a flip needs margin <= 2 x move: a near-tie is a margin far
+    below the median that roundings of the router's input can turn)."""
+    per_layer, first = [], None
+    for layer, (a, b) in enumerate(zip(kern, plain)):
+        a, b = a[:t], b[:t]
+        sa = a.topk(k, dim=-1).indices.sort(dim=-1).values
+        sb = b.topk(k, dim=-1).indices.sort(dim=-1).values
+        flip = (sa != sb).any(dim=-1)
+        per_layer.append(int(flip.sum()))
+        if first is None and bool(flip.any()):
+            lb = b.clamp_min(1e-30).log()
+            top = lb.sort(dim=-1, descending=True).values
+            margin = top[:, k - 1] - top[:, k]
+            d = a.clamp_min(1e-30).log() - lb
+            move = (d - d.mean(dim=-1, keepdim=True)).abs().amax(dim=-1)
+            first = {"layer": layer, "tokens": flip.nonzero()[:, 0].tolist(),
+                     "margin": margin[flip].tolist(),
+                     "median_margin": float(margin.median()),
+                     "move": move[flip].tolist(),
+                     "median_move": float(move.median())}
+    return {"tokens_flipped_per_layer": per_layer,
+            "layers_with_flips": sum(n > 0 for n in per_layer),
+            "first_flip": first}
+
+
 def _vs_plain(engine, args, act_dtype=None) -> dict:
     """A kernel engine and an engine on the plain versions (blockwise
     attention, decode-then-matmul, the sequential WKV), on the engine's
     weights and in ``act_dtype`` (default: the config's): the prefill
     logits of the first request's prompt and the greedy tokens of the
-    whole request set."""
+    whole request set; for MoE archs also the routing of that prefill in
+    both engines (`_routing_flips`)."""
     from repro_torch.launch import serve
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     cfg = engine.cfg if act_dtype is None else dataclasses.replace(
@@ -1164,7 +1269,7 @@ def _vs_plain(engine, args, act_dtype=None) -> dict:
     sizes = dict(max_batch=args.max_batch, max_prompt=args.max_prompt,
                  max_len=args.max_len)
     prompt = serve.make_requests(args, cfg.vocab)[0].prompt
-    outs, logits = {}, {}
+    outs, logits, probs = {}, {}, {}
     for name, ecfg, ops_ in (
             ("kernel", EngineConfig(**sizes), {}),
             ("plain", EngineConfig(**sizes, attn_impl="blockwise"),
@@ -1174,12 +1279,12 @@ def _vs_plain(engine, args, act_dtype=None) -> dict:
             for r in serve.make_requests(args, cfg.vocab):
                 eng.submit(r)
             outs[name] = {r.uid: r.output for r in eng.run()}
-            logits[name] = eng._prefill(0, prompt).float()
+            logits[name], probs[name] = _traced_prefill(eng, prompt)
     torch.cuda.synchronize()
     kern, plain = outs["kernel"], outs["plain"]
     prefix = [next((i for i, (a, b) in enumerate(zip(kern[u], plain[u]))
                     if a != b), len(plain[u])) for u in plain]
-    return {
+    res = {
         "prefill_logit_diff": float((logits["kernel"]
                                      - logits["plain"]).abs().max()),
         "max_abs_logit": float(logits["plain"].abs().max()),
@@ -1192,6 +1297,10 @@ def _vs_plain(engine, args, act_dtype=None) -> dict:
         "token_agreement": float(np.mean([kern[u][i] == plain[u][i]
                                           for u in plain
                                           for i in range(args.max_new)]))}
+    if cfg.is_moe:
+        res["routing"] = _routing_flips(probs["kernel"], probs["plain"],
+                                        cfg.top_k, len(prompt))
+    return res
 
 
 def phase_serving(dev, arch: str) -> dict:
@@ -1201,19 +1310,24 @@ def phase_serving(dev, arch: str) -> dict:
     from repro_torch.launch import serve
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     args = _serve_args(arch)
-    per_layer, wrappers = PER_LAYER[arch], _wrappers()
+    wrappers = _wrappers()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = serve.build_engine(args)
     torch.cuda.synchronize()
     cfg = engine.cfg
-    n_layers = cfg.n_layers
+    per_fwd = launches_per_forward(cfg)
+    ops_run = [op for op, n in per_fwd.items() if n]
     res = {"arch": cfg.name, "build_s": time.perf_counter() - t0,
            "attn_impl": cfg.attn_impl,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_forward": per_fwd,
            "args": {k: v for k, v in vars(args).items()}}
     print(f"slice {cfg.name}: built and packed in {res['build_s']:.2f} s, "
           f"attn_impl={cfg.attn_impl}, {cfg.param_count() / 1e9:.3f} G "
-          f"params, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"params, peak {res['peak_gib']:.2f} GiB; a forward launches "
+          f"{per_fwd} (layer pattern {cfg.layer_pattern} over "
+          f"{cfg.n_layers} layers)")
     if cfg.attn_impl != "cuda":
         fail(f"the engine resolved attn_impl to {cfg.attn_impl!r}, not cuda")
 
@@ -1230,12 +1344,11 @@ def phase_serving(dev, arch: str) -> dict:
     launches = {op: w.launches for op, w in wrappers.items()}
     st = engine.stats
     fwd = st["prefill_calls"] + st["decode_steps"]
-    want = {op: per_layer.get(op, 0) * n_layers * fwd for op in wrappers}
+    want = {op: per_fwd[op] * fwd for op in wrappers}
     res.update(launches=launches, expected_launches=want, stats=st,
                first_run_s=wall)
-    print(f"main path: {len(done)} requests, {st} ({fwd} forwards of "
-          f"{n_layers} layers); kernel launches {launches}, expected "
-          f"{want}; {wall:.3f} s cold")
+    print(f"main path: {len(done)} requests, {st} ({fwd} forwards); kernel "
+          f"launches {launches}, expected {want}; {wall:.3f} s cold")
     if launches != want:
         fail("kernel launch counts on the main path do not match the "
              "engine's forwards")
@@ -1285,11 +1398,11 @@ def phase_serving(dev, arch: str) -> dict:
     print(f"prefill ms per prompt length: {res['prefill_ms']}")
 
     # one prefill and one decode step with every call held against plain
-    ratios = {op: [] for op in per_layer}
+    ratios = {op: [] for op in ops_run}
     eng_c = ServeEngine(cfg, engine.params, engine.ecfg)
     eng_c.submit(serve.make_requests(args, cfg.vocab)[0])
     checked = _checked_ops(ratios)
-    with _patched(**{op: checked[op] for op in per_layer}):
+    with _patched(**{op: checked[op] for op in ops_run}):
         eng_c.step()
         torch.cuda.synchronize()
     res["per_call"] = {k: {"calls": len(v) // PLAIN_CHECKS[k],
@@ -1297,8 +1410,8 @@ def phase_serving(dev, arch: str) -> dict:
                        for k, v in ratios.items()}
     print(f"per-call check over one prefill and one decode step: "
           f"{res['per_call']}")
-    if any(len(ratios[op]) != 2 * n * n_layers * PLAIN_CHECKS[op]
-           for op, n in per_layer.items()) \
+    if any(len(ratios[op]) != 2 * per_fwd[op] * PLAIN_CHECKS[op]
+           for op in ops_run) \
             or max(max(v) for v in ratios.values()) > 1.0:
         fail("a kernel call of the slice disagrees with its plain version "
              "(or was not seen)")
@@ -1306,14 +1419,16 @@ def phase_serving(dev, arch: str) -> dict:
     # the kernel engine against an engine on the plain versions, on the
     # same weights, within 0.02 * (max|l| + 1).  Random-weight RWKV
     # amplifies one bf16 rounding of a WKV output (about 0.3 % after the
-    # group norm) to O(1) logit differences over its 24 layers, so two
-    # correct bf16 versions differ by about half of max|l| there: its limit
-    # is held in fp32 activations, and the bf16 difference is printed.
+    # group norm) to O(1) logit differences over its 24 layers, and in
+    # random-weight granite a bf16 rounding of a router input turns a
+    # near-tie between the 8th and 9th expert, so two correct bf16 versions
+    # differ by about max|l| there: their limit is held in fp32 activations,
+    # and the bf16 difference (with granite's routing flips) is printed.
     res["vs_plain"] = _vs_plain(engine, args)
     print(f"vs plain engine (blockwise attention, decode-then-matmul, "
           f"sequential WKV), {cfg.act_dtype}: {res['vs_plain']}")
     held = res["vs_plain"]
-    if arch == RWKV_ARCH:
+    if arch in FP32_HELD:
         held = res["vs_plain_fp32"] = _vs_plain(engine, args, torch.float32)
         print(f"vs plain engine, fp32 activations: {held}")
     held["tol"] = tol = 0.02 * (held["max_abs_logit"] + 1)
@@ -1336,7 +1451,8 @@ def phase_serving(dev, arch: str) -> dict:
     print(f"profiled decode step ({args.max_batch} busy slots): "
           f"{step_ms:.3f} ms host clock, {prof['device_kernels']} device "
           f"kernels, busy {prof['device_busy_ms']:.3f} ms, idle share "
-          f"{prof['idle_share']}, attention kernels "
+          f"{prof['idle_share']}, log_matmul kernels "
+          f"{prof['log_matmul_ms']:.4f} ms, attention kernels "
           f"{prof['attention_ms']:.4f} ms, top {prof['top_kernels_ms']}")
     res["engine"] = engine
     return res
@@ -1379,9 +1495,9 @@ def _layer_products(engine) -> list:
                 yield from leaves(v)
         elif isinstance(tree, QuantizedTensor):
             yield tree
-    seg = engine.params["segments"]["seg0"]
-    return [qt for r in range(engine.cfg.n_layers)
-            for qt in leaves(_rep(seg, r))]
+    return [qt for si, (_, n_rep) in enumerate(engine.cfg.segments)
+            for r in range(n_rep)
+            for qt in leaves(_rep(engine.params["segments"][f"seg{si}"], r))]
 
 
 def phase_matmul_times(dev, engine, arch: str) -> dict:
@@ -1401,9 +1517,9 @@ def phase_matmul_times(dev, engine, arch: str) -> dict:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     mats = _layer_products(engine)
-    if len(mats) != PER_LAYER[arch]["log_matmul"] * cfg.n_layers:
+    if len(mats) != launches_per_forward(cfg)["log_matmul"]:
         fail(f"{arch}: {len(mats)} packed products, expected "
-             f"{PER_LAYER[arch]['log_matmul']} a layer")
+             f"{launches_per_forward(cfg)['log_matmul']} a forward")
     out = {}
     for M in (B, 16):
         xs = {qt.packed.shape[0]: torch.randn(
@@ -1730,9 +1846,10 @@ def phase_wkv6_times(dev, engine) -> dict:
         def kernel():
             return [wkv6_cuda(*a) for a in ins]
         # as for log_matmul: where the profiler dropped an event (at most
-        # 2 % of them; a window loses one or two), the mean of those it saw
-        # stands in for it, so a window holds at least 50 kernels
-        n_win = max(5, -(-50 // len(ins)))
+        # 2 % of them; a window loses one or two, also when it holds only
+        # 50 T = 2048 calls), the mean of those it saw stands in for it, so
+        # a window holds at least 100 kernels
+        n_win = max(5, -(-100 // len(ins)))
         seen = complete_window(kernel, f"wkv6 {label}", n_win,
                                lambda name: "wkv6_decode_kernel" in name
                                or "wkv6_chunked_kernel" in name,
@@ -2061,6 +2178,12 @@ def main() -> int:
     del rw_engine
     oracle = phase_oracle(dev)
     example = phase_example(dev)
+    paths = {}
+    for arch in (RG_ARCH, MOE_ARCH):
+        paths[arch] = phase_serving(dev, arch)
+        del paths[arch]["engine"]
+        torch.cuda.empty_cache()
+    rg, moe = paths[RG_ARCH], paths[MOE_ARCH]
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "event_ms", "plain_ms", "library_ms",
@@ -2080,6 +2203,10 @@ def main() -> int:
     mm = lm_times[f"log_matmul M={lm['args']['max_batch']}"]
     conv_launches = {"cnn_slice": launches, "oracle": oracle["launches"],
                      "example": example["launches"]}
+    lm_paths = {LM_ARCH: lm, RWKV_ARCH: rw, RG_ARCH: rg, MOE_ARCH: moe}
+    by_path = {op: {a: r["launches"][op] for a, r in lm_paths.items()
+                    if r["launches"][op]}
+               for op in ("log_matmul", "attention")}
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
             "src/repro/kernels/log_conv2d.py:491",
@@ -2103,13 +2230,16 @@ def main() -> int:
                                           for n in nets)),
         row("log_matmul_cuda", "log_matmul.cu",
             "src/repro/kernels/log_matmul.py:95",
-            lm["launches"]["log_matmul"] + rw["launches"]["log_matmul"],
+            sum(by_path["log_matmul"].values()),
             mm_err, mm, time=f"device time by torch.profiler over the "
             f"{mm['calls']} products of one {LM_ARCH} decode step; "
-            f"plain_ms by CUDA events", event_loop_ms=mm["event_loop_ms"]),
+            f"plain_ms by CUDA events", event_loop_ms=mm["event_loop_ms"],
+            launches_by_path=by_path["log_matmul"]),
         row("flash_attention_cuda", "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:125",
-            lm["launches"]["attention"], at_err, lm_times["attention decode"],
+            sum(by_path["attention"].values()), at_err,
+            lm_times["attention decode"],
+            launches_by_path=by_path["attention"],
             time=f"device time by torch.profiler over the {LM_ARCH} decode "
             f"step's 18 calls (split-KV variant); plain_ms by CUDA events",
             event_ms=lm_times["attention decode"]["event_ms"],
@@ -2136,7 +2266,8 @@ def main() -> int:
          "lm_slice": lm, "lm_times": lm_times, "wkv6_checks": wk_rows,
          "rwkv_slice": rw, "wkv6_times": wk_times,
          "rwkv_log_matmul_times": rw_mm_times, "oracle": oracle,
-         "example": example,
+         "example": example, "recurrentgemma_slice": rg,
+         "granite_moe_slice": moe,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -2147,9 +2278,8 @@ def main() -> int:
           f"device time), wkv6 "
           f"times over one {RWKV_ARCH} decode step (24 calls, device time); "
           f"log_matmul "
-          f"launches are those of both LM main "
-          f"paths ({lm['launches']['log_matmul']} + "
-          f"{rw['launches']['log_matmul']}); log_conv2d launches those of "
+          f"and attention launches are those of the four LM main "
+          f"paths (by path: {by_path}); log_conv2d launches those of "
           f"the CNN slice, whose convs its times cover (the oracle's and the "
           f"example's in launches_by_path: {conv_launches})")
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")

@@ -2,17 +2,23 @@
 on packed log-code weights.
 
     python -m repro_torch.launch.serve --arch gemma-2b          # on the card
-    python -m repro_torch.launch.serve --arch rwkv6-1.6b        # on the card
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --reduced --device cpu
 
 Counterpart of `repro.launch.serve` (the mesh flags wait for ROADMAP.md
-queue A, item 17).  The weights are random, from ``--seed``, and are packed
-by `serving.quantize.quantize_params` before the engine is built, so on the
-card every dense layer runs on the log_matmul kernel, every attention call
-on the attention kernel and every RWKV layer's recurrence on the wkv6
-kernel.
+queue A, item 17).  Every token arch is served (`--arch`; also
+granite-moe-1b-a400m, gemma3-1b, qwen1.5-4b, llama3-405b); the archs fed
+with embeddings (musicgen-large, qwen2-vl-2b) are refused.  The weights are
+random, from ``--seed``, and are packed by `serving.quantize.quantize_params`
+before the engine is built, so on the card every packed dense layer (the
+attention projections and dense FFNs) runs on the log_matmul kernel, every
+attention call on the attention kernel and every RWKV layer's recurrence
+on the wkv6 kernel.  The RG-LRU blocks and the MoE experts keep fp32
+weights, as in the JAX package, and run as plain torch ops.
 """
 
 from __future__ import annotations

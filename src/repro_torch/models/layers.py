@@ -115,7 +115,7 @@ def apply_rope(x, positions, theta=10_000.0, mrope_sections=None):
 
 
 # ---------------------------------------------------------------------------
-# FFN (dense path; MoE waits for ROADMAP.md queue A, item 13)
+# FFN (dense path; the MoE FFN is `models/moe.py`)
 # ---------------------------------------------------------------------------
 
 

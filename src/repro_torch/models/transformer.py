@@ -8,16 +8,17 @@ this one leaf by leaf (`params_from_numpy`).  Where JAX scans, `forward`
 loops over the reps in Python and slices the stacked tensors; a slice of a
 contiguous stack is a contiguous view, so no weight is copied.
 
-Layer kinds: attention ("attn", "local": mixer then FFN) and RWKV6
-("rwkv": time-mix then channel-mix, no FFN).
+Layer kinds: attention ("attn", "local") and Griffin's RG-LRU ("rec"),
+each a mixer then an FFN, the FFN a top-k MoE when ``cfg.is_moe``; and
+RWKV6 ("rwkv": time-mix then channel-mix, no FFN).
 
 Cache: ``{"index": int or int tensor [B], "segments": {seg: stacked
 per-layer state}}``; the layers write it in place (attention: K/V at the
-index; RWKV: ``x_prev_t``, ``x_prev_c`` and the WKV state).
+index; RG-LRU: ``h`` and the conv window; RWKV: ``x_prev_t``, ``x_prev_c``
+and the WKV state).
 
-Not ported yet: RG-LRU layers and MoE FFNs (ROADMAP.md queue A, item 13),
-frontend-stub archs fed with embeddings and the training loss
-(`chunked_xent`, `lm_loss`: item 14).
+Not ported yet: frontend-stub archs fed with embeddings and the training
+loss (`chunked_xent`, `lm_loss`: ROADMAP.md queue A, item 14).
 """
 
 from __future__ import annotations
@@ -28,22 +29,16 @@ from repro_torch.core.logquant import QuantizedTensor
 from repro_torch.kernels.ref import positions as _positions
 from .attention import attention_mixer, attn_init, init_kv_cache
 from .cnn import params_from_numpy, resolve_device  # noqa: F401
+from .griffin import griffin_init, griffin_mixer, griffin_state_init
 from .layers import (embed, embed_init, ffn, ffn_init, norm, norm_init,
                      unembed)
+from .moe import moe_ffn, moe_init
 from .rwkv import (rwkv_channel_mix, rwkv_init, rwkv_state_init,
                    rwkv_time_mix)
 
 
 def check_supported(cfg) -> None:
     """Raise for what this slice of the port does not run."""
-    kinds = set(cfg.layer_pattern) - {"attn", "local", "rwkv"}
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: {sorted(kinds)} layers are not ported yet "
-            f"(ROADMAP.md queue A, item 13)")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet "
-                                  f"(ROADMAP.md queue A, item 13)")
     if not cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name}: embedding inputs (frontend stubs) are not ported "
@@ -56,14 +51,17 @@ def check_supported(cfg) -> None:
 
 
 def layer_init(gen, cfg, kind: str, *, lead=(), device=None):
-    """One layer (``kind`` "attn", "local" or "rwkv"), every leaf prefixed
-    by ``lead``."""
+    """One layer (``kind`` "attn", "local", "rec" or "rwkv"), every leaf
+    prefixed by ``lead``."""
     kw = dict(lead=lead, device=device)
     norms = {"norm1": norm_init(cfg, **kw), "norm2": norm_init(cfg, **kw)}
     if kind == "rwkv":
         return {**norms, "rwkv": rwkv_init(gen, cfg, **kw)}
-    return {**norms, "attn": attn_init(gen, cfg, **kw),
-            "ffn": ffn_init(gen, cfg, **kw)}
+    mixer = {"rec": griffin_init(gen, cfg, **kw)} if kind == "rec" \
+        else {"attn": attn_init(gen, cfg, **kw)}
+    ffn_p = moe_init(gen, cfg, **kw) if cfg.is_moe \
+        else ffn_init(gen, cfg, **kw)
+    return {**norms, **mixer, "ffn": ffn_p}
 
 
 def unit_init(gen, cfg, unit, *, lead=(), device=None):
@@ -94,9 +92,12 @@ def init_params(cfg, seed: int = 0, *, device=None):
 
 def layer_cache(cfg, kind, batch, max_len, dtype, *, lead=(), device=None):
     """One layer's cache: K/V for attention (in ``dtype``), the fp32
-    recurrent state for RWKV (whatever ``dtype`` and ``max_len``)."""
+    recurrent state for RG-LRU and RWKV (whatever ``dtype`` and
+    ``max_len``)."""
     if kind == "rwkv":
         return rwkv_state_init(cfg, batch, lead=lead, device=device)
+    if kind == "rec":
+        return griffin_state_init(cfg, batch, lead=lead, device=device)
     return init_kv_cache(cfg, kind, batch, max_len, dtype, lead=lead,
                          device=device)
 
@@ -129,19 +130,28 @@ def _rep(tree, r: int):
 
 
 def _apply_layer(lp, h, cfg, kind, positions, lcache, index):
-    """One pre-norm residual layer → (h, cache)."""
+    """One pre-norm residual layer → (h, cache, aux): ``aux`` is the MoE
+    router loss, 0.0 without MoE."""
     if kind == "rwkv":
         o, lcache = rwkv_time_mix(lp["rwkv"], norm(cfg, lp["norm1"], h), cfg,
                                   lcache)
         h = h + o
         o, lcache = rwkv_channel_mix(lp["rwkv"], norm(cfg, lp["norm2"], h),
                                      cfg, lcache)
-        return h + o, lcache
-    o, lcache = attention_mixer(lp["attn"], norm(cfg, lp["norm1"], h), cfg,
-                                kind=kind, positions=positions, cache=lcache,
-                                index=index)
+        return h + o, lcache, 0.0
+    if kind == "rec":
+        o, lcache = griffin_mixer(lp["rec"], norm(cfg, lp["norm1"], h), cfg,
+                                  lcache)
+    else:
+        o, lcache = attention_mixer(lp["attn"], norm(cfg, lp["norm1"], h),
+                                    cfg, kind=kind, positions=positions,
+                                    cache=lcache, index=index)
     h = h + o
-    return h + ffn(lp["ffn"], norm(cfg, lp["norm2"], h), cfg), lcache
+    hn = norm(cfg, lp["norm2"], h)
+    if cfg.is_moe:
+        o, aux = moe_ffn(lp["ffn"], hn, cfg)
+        return h + o, lcache, aux
+    return h + ffn(lp["ffn"], hn, cfg), lcache, 0.0
 
 
 def forward(params, inputs, cfg, *, positions=None, cache=None):
@@ -149,8 +159,9 @@ def forward(params, inputs, cfg, *, positions=None, cache=None):
 
     With a cache, ``cache["index"]`` (an int or an int tensor [B]) is the
     absolute position of inputs[:, 0]; the cache is updated in place and
-    returned with the index advanced by T.  ``aux`` is 0.0 (it carries the
-    MoE router loss in the JAX package)."""
+    returned with the index advanced by T.  ``aux`` is the MoE router loss
+    summed over the layers (a 0-d fp32 tensor), 0.0 for archs without
+    MoE."""
     check_supported(cfg)
     h = embed(params["embed"], inputs, cfg)
     B, T = inputs.shape[:2]
@@ -158,6 +169,7 @@ def forward(params, inputs, cfg, *, positions=None, cache=None):
     if positions is None:
         positions = _positions(T, index, h.device).expand(B, T)
 
+    aux = 0.0
     for si, (unit, n_rep) in enumerate(cfg.segments):
         seg_p = params["segments"][f"seg{si}"]
         seg_c = None if cache is None else cache["segments"][f"seg{si}"]
@@ -165,14 +177,15 @@ def forward(params, inputs, cfg, *, positions=None, cache=None):
             up = _rep(seg_p, r)
             uc = None if seg_c is None else _rep(seg_c, r)
             for i, kind in enumerate(unit):
-                h, _ = _apply_layer(up[f"l{i}"], h, cfg, kind, positions,
-                                    None if uc is None else uc[f"l{i}"],
-                                    index)
+                h, _, a = _apply_layer(up[f"l{i}"], h, cfg, kind, positions,
+                                       None if uc is None else uc[f"l{i}"],
+                                       index)
+                aux = aux + a
     h = norm(cfg, params["final_norm"], h)
     new_cache = None
     if cache is not None:
         new_cache = {"index": index + T, "segments": cache["segments"]}
-    return h, new_cache, 0.0
+    return h, new_cache, aux
 
 
 def logits_fn(params, h, cfg):

@@ -1,25 +1,35 @@
 """Batched serving engine: continuous-batching prefill + decode.
 
-Counterpart of `repro.serving.engine` for the attention-only and RWKV
-archs:
+Counterpart of `repro.serving.engine` for every token arch the port runs
+(attention-only, RG-LRU hybrid, MoE and RWKV):
 
   · a fixed engine batch of `max_batch` slots, each slot = one sequence;
   · **prefill** runs one slot at a time at its own prompt length.  For
-    attention-only archs it is right-padded to a power-of-two bucket (pad
-    keys land at positions past the prompt and are causally masked, then
-    overwritten during decode, so they are never visible); archs with
-    recurrent layers prefill at the exact length, since a pad token would
-    enter the recurrent state.  The slot's part of the cache is zeroed in
+    archs without recurrent layers it is right-padded to a power-of-two
+    bucket (pad keys land at positions past the prompt and are causally
+    masked, then overwritten during decode, so they are never visible);
+    archs with recurrent layers (RG-LRU, RWKV) prefill at the exact
+    length, since a pad token would enter the recurrent state.  The slot's
+    part of the cache (K/V and every recurrent state alike) is zeroed in
     place first;
   · **decode** is one batched forward for all slots: where the JAX engine
     vmaps over slots, each batch row here carries its own position, in the
     RoPE, in the cache write (a scatter at ``slot_pos[b]``) and in the
-    attention offsets, so ragged batches need no padding (RWKV layers read
-    no position: each row carries its own state);
+    attention offsets, so ragged batches need no padding (recurrent layers
+    read no position: each row carries its own state);
   · finished slots are refilled from the FIFO queue between decode steps;
   · sampling is greedy at temperature 0; above it a `torch.Generator`
     seeded with ``seed + len(output)`` draws the token (its stream differs
     from `jax.random`'s, so only greedy decoding matches the JAX engine).
+
+MoE capacity follows the token count of each forward, as in JAX.  A
+prefill routes its padded bucket: C = int(cf·Tpad·K/E) counts the pad
+tokens, which queue behind the real ones (queue order is token-major), so
+a pad token never takes a real token's slot, as in the JAX engine, which
+pads alike.  A decode step routes all ``max_batch`` slots as one group of
+N tokens where the JAX engine routes each slot alone (N = 1); at T = 1 the
+capacity is the whole group in both, so no token drops and every token's
+output is the same in both.
 
 The `stats` counters are always kept; with telemetry on, the engine also
 records per-request timelines, TTFT / prefill / decode-step / tokens-per-s
@@ -189,6 +199,8 @@ class ServeEngine:
             if self._pad_prefill else T
         toks = torch.zeros((1, Tpad), dtype=torch.long)
         toks[0, :T] = torch.as_tensor(np.asarray(prompt), dtype=torch.long)
+        # every cache leaf is [n_rep, B, ...]: K/V, and the fp32 states of
+        # RG-LRU (h, conv) and RWKV alike
         sub = _map(lambda c: c[:, slot:slot + 1].zero_(),
                    self.cache["segments"])
         h, _, _ = transformer.forward(

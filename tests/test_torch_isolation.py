@@ -31,6 +31,8 @@ def _imported_modules(path: Path) -> list[str]:
 
 def test_port_sources_import_neither_jax_nor_repro():
     assert len(PORT_FILES) >= 10
+    models = {p.name for p in PORT_FILES if p.parent.name == "models"}
+    assert {"griffin.py", "moe.py", "rwkv.py", "transformer.py"} <= models
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -69,11 +69,12 @@ def _tokens(seed, shape):
 
 
 def test_rwkv_is_served_and_the_rest_of_item_13_is_refused():
-    """rwkv6-1.6b passes `check_supported`; Griffin, MoE and embedding
-    inputs still raise, naming the roadmap."""
-    tt.check_supported(tget(ARCH))
-    for arch in ("recurrentgemma-2b", "granite-moe-1b-a400m",
-                 "musicgen-large"):
+    """rwkv6-1.6b passes `check_supported`, as do the Griffin and MoE archs
+    that closed item 13; embedding inputs (item 14) still raise, naming
+    the roadmap."""
+    for arch in (ARCH, "recurrentgemma-2b", "granite-moe-1b-a400m"):
+        tt.check_supported(tget(arch))
+    for arch in ("musicgen-large", "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
             tt.check_supported(tget(arch))
 

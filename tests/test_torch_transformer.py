@@ -4,10 +4,13 @@ against the JAX package's, on the same weights (a JAX parameter tree
 bridged with `transformer.params_from_numpy`).
 
 The configs are `reduced()` (fp32 activations): gemma-2b (MQA, GeGLU, tied
-embeddings with `embed_scale`), gemma3-1b (local ring layers) and
-qwen1.5-4b (MHA with QKV bias, an untied head).  Hidden states agree within
-1e-4·(max|h|+1), with fp weights and with weights packed by
-`quantize_params`, whose codes and scales equal JAX's byte for byte.
+embeddings with `embed_scale`), gemma3-1b (local ring layers), qwen1.5-4b
+(MHA with QKV bias, an untied head), recurrentgemma-2b (RG-LRU layers and
+local attention, pattern rec, rec, local) and granite-moe-1b-a400m (GQA
+with top-k MoE FFNs).  Hidden states agree within 1e-4·(max|h|+1), with fp
+weights and with weights packed by `quantize_params`, whose codes and scales
+equal JAX's byte for byte (the Griffin and expert weights stay fp32, as in
+JAX).
 """
 
 import dataclasses
@@ -33,7 +36,8 @@ from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.serving import quantize as tq  # noqa: E402
 
-ARCHS = ["gemma-2b", "gemma3-1b", "qwen1.5-4b"]
+ARCHS = ["gemma-2b", "gemma3-1b", "qwen1.5-4b", "recurrentgemma-2b",
+         "granite-moe-1b-a400m"]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -159,10 +163,20 @@ def test_init_params_tree_matches_jax(arch):
     assert tshapes(tt.init_params(cfg_t, 0, device="cpu")) == shapes
 
 
+def _packed_per_layer(cfg, kind) -> int:
+    """Leaves `quantize_params` packs in one layer: the attention
+    projections and a dense FFN's matrices; the RG-LRU's and the experts'
+    weights and the router stay fp."""
+    ffn = 0 if cfg.is_moe else 3 if cfg.ffn in ("swiglu", "geglu") else 2
+    return ffn + (4 if kind in ("attn", "local") else 0)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_quantize_params_matches_jax(arch):
     """Codes and scales byte-equal to JAX's, stacked [n_rep, K, N] leaves
-    with per-(rep, channel) scales included."""
+    with per-(rep, channel) scales included; every leaf JAX leaves fp
+    (Griffin's ``w_*``, ``conv_*`` and ``lam``; ``router`` and
+    ``moe_w*``) stays fp32 here."""
     jp, tp = _params(arch)
     jpk, tpk = jq.quantize_params(jp), tq.quantize_params(tp)
     jleaves = {jax.tree_util.keystr(k): v for k, v in
@@ -186,8 +200,22 @@ def test_quantize_params_matches_jax(arch):
                                           np.asarray(want.packed))
         else:
             assert not hasattr(want, "packed"), path
+            assert tree.dtype == torch.float32, path
     walk(tpk, "")
-    assert n == 7 * len(jget(arch).reduced().segments[0][0])
+    cfg = jget(arch).reduced()
+    assert n == sum(_packed_per_layer(cfg, kind)
+                    for unit, _ in cfg.segments for kind in unit)
+    assert n > 0
+
+
+def test_quant_leaves_are_jaxs_so_griffin_and_experts_stay_fp():
+    """The port packs exactly JAX's leaf names: none of the RG-LRU block's
+    leaves and none of the MoE router's or experts' are among them."""
+    assert tq.QUANT_LEAVES == jq.QUANT_LEAVES
+    griffin = {"w_gate", "w_x", "conv_w", "conv_b", "w_r", "w_i", "lam",
+               "w_out"}
+    moe = {"router", "moe_w1", "moe_w2", "moe_w3"}
+    assert not (griffin | moe) & tq.QUANT_LEAVES
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -198,7 +226,7 @@ def test_forward_matches_jax(arch, packed):
         jp, tp = jq.quantize_params(jp), tq.quantize_params(tp)
     cfg_j, cfg_t = jget(arch).reduced(), tget(arch).reduced()
     toks = np.random.default_rng(1).integers(1, 512, size=(2, 12))
-    hj, _, _ = jax.jit(lambda p, t: jt.forward(p, t, cfg_j))(
+    hj, _, aj = jax.jit(lambda p, t: jt.forward(p, t, cfg_j))(
         jp, jnp.asarray(toks, jnp.int32))
     for impl in ("cuda", "blockwise"):
         ht, cache, aux = tt.forward(tp, torch.from_numpy(toks),
@@ -206,6 +234,9 @@ def test_forward_matches_jax(arch, packed):
                                                         attn_impl=impl))
         assert cache is None and ht.shape == (2, 12, 64)
         _close(ht, hj, rel=1e-4, msg=impl)
+        # the summed MoE router loss (0 without MoE, in both)
+        _close(torch.as_tensor(aux), aj, rel=1e-5, msg=f"aux, {impl}")
+        assert (float(aux) > 0) == cfg_t.is_moe
     lj = jt.logits_fn(jp, hj, cfg_j)
     _close(tt.logits_fn(tp, ht, cfg_t), lj, rel=1e-4)
 
@@ -253,7 +284,56 @@ def test_ring_prefill_longer_than_the_window(T):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                  "granite-moe-1b-a400m", "musicgen-large"])
+                                  "granite-moe-1b-a400m"])
+def test_prefill_then_decode_of_recurrent_and_moe_archs(arch):
+    """The cache path of the Griffin and MoE archs: prefill 9 tokens, then
+    decode 3 at per-row positions; every step against JAX's
+    prefill/decode_step and against JAX's full forward at that position
+    (recurrentgemma: RG-LRU state and conv window, and a local ring that
+    holds the prompt)."""
+    jp, tp = _params(arch)
+    cfg_j, cfg_t = jget(arch).reduced(), tget(arch).reduced()
+    toks = np.random.default_rng(5).integers(1, 512, size=(1, 12))
+    hf, _, _ = jax.jit(lambda p, t: jt.forward(p, t, cfg_j))(
+        jp, jnp.asarray(toks, jnp.int32))
+    jc = jt.init_cache(cfg_j, 1, 24, jnp.float32)
+    tc = tt.init_cache(cfg_t, 1, 24, torch.float32, device="cpu")
+    hj, jc = jax.jit(lambda p, t, c: jt.prefill(p, t, cfg_j, c))(
+        jp, jnp.asarray(toks[:, :9], jnp.int32), jc)
+    ht, tc = tt.prefill(tp, torch.from_numpy(toks[:, :9]), cfg_t, tc)
+    _close(ht, hj, rel=1e-4)
+    _close(ht, hf[:, 8:9], rel=1e-4)
+    step = jax.jit(lambda p, t, c: jt.decode_step(p, t, cfg_j, c))
+    for i in (9, 10, 11):
+        lj, jc = step(jp, jnp.asarray(toks[:, i:i + 1], jnp.int32), jc)
+        tc["index"] = torch.tensor([i])
+        lt, tc = tt.decode_step(tp, torch.from_numpy(toks[:, i:i + 1]),
+                                cfg_t, tc)
+        _close(lt, lj, rel=1e-4, msg=f"decode at {i}")
+        _close(lt, jt.logits_fn(jp, hf[:, i:i + 1], cfg_j), rel=1e-4,
+               msg=f"decode at {i} vs the full forward")
+
+
+def test_recurrentgemma_ring_prefill_longer_than_the_window():
+    """recurrentgemma prefills at exact length, so a prompt can outgrow a
+    local layer's ring (C.1): 6 tokens into a 4-slot ring, then one decode
+    step, equal JAX's full forward over the same 7 tokens (not JAX's own
+    prefill, which misplaces the ring)."""
+    arch = "recurrentgemma-2b"
+    cfg_j = dataclasses.replace(jget(arch).reduced(), attn_window=4)
+    cfg_t = dataclasses.replace(tget(arch).reduced(), attn_window=4)
+    jp, tp = _params(arch)
+    toks = np.random.default_rng(6).integers(1, 512, size=(1, 7))
+    hj, _, _ = jax.jit(lambda p, t: jt.forward(p, t, cfg_j))(
+        jp, jnp.asarray(toks, jnp.int32))
+    cache = tt.init_cache(cfg_t, 1, 16, torch.float32, device="cpu")
+    assert cache["segments"]["seg0"]["l2"]["k"].shape[2] == 4
+    _, cache = tt.prefill(tp, torch.from_numpy(toks[:, :6]), cfg_t, cache)
+    got, _ = tt.decode_step(tp, torch.from_numpy(toks[:, 6:]), cfg_t, cache)
+    _close(got, jt.logits_fn(jp, hj[:, -1:], cfg_j), rel=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
     cfg = tget(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
