@@ -176,6 +176,30 @@ goes wrong:
      (`_routing_flips`: tokens flipped per layer, the first flip's margin
      against the layer's median).
 
+     Phases 9, 12, 16 and 17 end with one more decode step under the
+     kernel-dispatch profiler (`repro_torch.obs.kernel_profile`): a record
+     a shape key (op, calls, µs by CUDA events, bytes, GB/s, the bytes
+     bound);
+ 18. the kernel-dispatch profiler on the card: gemma-2b's engine (phase
+     9's) serves the 8 requests with the profiler on: its prefill and
+     decode programs, per op the records' calls equal to the wrapper's
+     launches, every record of impl and backend ``cuda``, with a steady
+     time of its own and the bytes of the model (`conv_traffic_bytes`,
+     `attention_traffic_bytes`, the log_matmul and wkv6 formulas) computed
+     from each call's tensors; its decode step with the profiler off and
+     on.  Then one batch-8 forward of each net under the profiler (calls
+     = launches 13/27/36/26, as above); every conv shape of the zoo in a
+     back-to-back loop of 20 calls, a record's steady µs against phase 6's
+     `torch.profiler` device time a call of the shape, held within
+     [0.9, 1.25] x + 10 µs for VGG-16's 13 shapes and printed for the
+     rest; `ops.wkv6` at rwkv6-1.6b's decode shape; the top ten records by
+     total time;
+ 19. the bench twins (`repro_torch.benchmarks`: conv_kernels at 224 px,
+     attention_kernels, telemetry_overhead) through their CLI in a process
+     of their own, their JSON under `chiprun_out/`; the conv and attention
+     twins' correctness and traffic gates must hold, the telemetry
+     overhead is printed.
+
 Phases 5, 9, 12, 14, 15, 16 and 17 drive the main paths: the kernels'
 launch counts are set to 0 just before each and read just after.
 
@@ -208,9 +232,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks from NVIDIA's data sheet: fp32 on the CUDA cores, dense
 # bf16 on the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
+from repro_torch.benchmarks.common import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES)
+
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
                  "squeezenet": 26}
@@ -363,16 +387,17 @@ def check_registers(log: str, limit: int) -> None:
 
 def conv_cost(r: dict) -> tuple[int, int]:
     """(bytes, flops) of one conv: each input read once, each output
-    written once; 2 FLOP per multiply-add."""
-    from repro_torch.kernels.log_conv2d import _out_size, normalize_padding
+    written once (`conv_traffic_bytes("min")`); 2 FLOP per multiply-add."""
+    from repro_torch.kernels.log_conv2d import (_out_size,
+                                                conv_traffic_bytes,
+                                                normalize_padding)
     B, H, W, C, K, Cout = (r[k] for k in ("B", "H", "W", "C", "K", "Cout"))
+    kw = {k: r[k] for k in ("stride", "padding", "groups")}
     pads = normalize_padding(r["padding"], K, r["stride"], H, W)
     Ho = _out_size(H, K, r["stride"], pads[0])
     Wo = _out_size(W, K, r["stride"], pads[1])
-    cin_g = C // r["groups"]
-    nbytes = 4 * B * H * W * C + K * K * cin_g * Cout + 4 * Cout \
-        + 4 * B * Ho * Wo * Cout
-    return nbytes, 2 * B * Ho * Wo * Cout * K * K * cin_g
+    nbytes = conv_traffic_bytes("min", B, H, W, C, K, Cout, **kw)["total"]
+    return nbytes, 2 * B * Ho * Wo * Cout * K * K * (C // r["groups"])
 
 
 def make_conv(r: dict, rng, dev):
@@ -1454,8 +1479,54 @@ def phase_serving(dev, arch: str) -> dict:
           f"{prof['idle_share']}, log_matmul kernels "
           f"{prof['log_matmul_ms']:.4f} ms, attention kernels "
           f"{prof['attention_ms']:.4f} ms, top {prof['top_kernels_ms']}")
+
+    # one more decode step with the kernel-dispatch profiler on: a record a
+    # shape key, each beside its bytes bound
+    res["profiled_keys"] = profiled_records(
+        eng_d.step, f"{cfg.name} decode step ({args.max_batch} busy slots)")
     res["engine"] = engine
     return res
+
+
+def record_row(r: dict) -> dict:
+    """One kernel-dispatch profiler record, with its time (the steady mean,
+    or the first call where there is no steady one), its rate and the
+    least time its bytes take at 3.35 TB/s."""
+    us = r["steady_us"] if r["steady_us"] is not None else r["first_us"]
+    nbytes = r["bytes"]["total"]
+    return {"op": r["op"], "impl": r["impl"], "key": r["key"],
+            "calls": r["calls"], "first_us": r["first_us"],
+            "steady_us": r["steady_us"], "us": us, "bytes": nbytes,
+            "gb_per_s": nbytes / us / 1e3,
+            "share_of_hbm_rate": nbytes / us / 1e3 / (PEAK_HBM_BYTES / 1e9),
+            "bytes_bound_us": nbytes / PEAK_HBM_BYTES * 1e6,
+            "total_us": us * r["calls"]}
+
+
+def print_records(rows: list, what: str, n: int = 10) -> None:
+    """The ``n`` records that take the most time in all."""
+    print(f"{what}: {len(rows)} kernel-dispatch records, the top {n} by "
+          f"total time (op, key, calls, steady µs, bytes, GB/s, share of "
+          f"3.35 TB/s):")
+    for r in sorted(rows, key=lambda r: -r["total_us"])[:n]:
+        print(f"  {r['op']:10s} {r['key']:58s} {r['calls']:5d} "
+              f"{r['us']:10.2f} {r['bytes']:11d} {r['gb_per_s']:8.1f} "
+              f"{r['share_of_hbm_rate']:.3f}")
+
+
+def profiled_records(fn, what: str) -> list:
+    """The kernel-dispatch profiler's records of one call of ``fn``."""
+    from repro_torch.obs import kernel_profile as kprof
+    kprof.clear()
+    kprof.set_enabled(True)
+    try:
+        fn()
+        rows = [record_row(r) for r in kprof.snapshot()["records"]]
+    finally:
+        kprof.set_enabled(None)
+        kprof.clear()
+    print_records(rows, what)
+    return rows
 
 
 def _host_time(fn, reps: int) -> float:
@@ -2125,6 +2196,331 @@ def phase_example(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 18: the kernel-dispatch profiler on the card; 19: the bench twins
+# ---------------------------------------------------------------------------
+
+PROFILED_REPS = 20   # steady calls of a loop under the kernel profiler
+
+
+def _spy_ops(expected: dict, names) -> dict:
+    """Stand-ins for the `ops` entries ``names`` that note, for each call,
+    the key and the bytes the profiler must record for it, computed from
+    the call's own tensors (``expected[key]``: the bytes of each call with
+    that key, in order), then run the op."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (attention_key,
+                                                     attention_traffic_bytes)
+    from repro_torch.kernels.log_conv2d import (conv_key, conv_traffic_bytes,
+                                                sm_count)
+    orig = {n: getattr(ops, n) for n in names}
+
+    def note(key, nbytes):
+        expected.setdefault(key, []).append(nbytes)
+
+    def conv2d(x, qt, *, stride=1, padding="SAME", groups=1, **kw):
+        B, H, W, C = x.shape
+        K, Cout = qt.shape[0], qt.shape[-1]
+        note(conv_key(B, H, W, C, K, Cout, stride=stride, padding=padding,
+                      groups=groups, cfg=qt.cfg),
+             conv_traffic_bytes("cuda", B, H, W, C, K, Cout, stride=stride,
+                                padding=padding, groups=groups,
+                                bits=qt.cfg.bits,
+                                n_sm=sm_count(x.device.index)))
+        return orig["conv2d"](x, qt, stride=stride, padding=padding,
+                              groups=groups, **kw)
+
+    def log_matmul(x, qt, **kw):
+        K, N = x.shape[-1], qt.packed.shape[-1]
+        M, it = x.numel() // K, x.element_size()
+        note(f"log_matmul|cuda|m{M}|k{K}|n{N}",
+             {"act": M * K * it, "w": K * N, "out": M * N * it,
+              "total": M * K * it + K * N + M * N * it})
+        return orig["log_matmul"](x, qt, **kw)
+
+    def attention(q, k, v, *, causal=True, window=None, **kw):
+        B, Tq, H, D = q.shape
+        Tk, Hkv = k.shape[1], k.shape[2]
+        note(attention_key(B, Tq, Tk, H, Hkv, D, causal=causal,
+                           window=window),
+             attention_traffic_bytes("cuda", B, Tq, Tk, H, Hkv, D,
+                                     itemsize=q.element_size(),
+                                     kv_itemsize=k.element_size()))
+        return orig["attention"](q, k, v, causal=causal, window=window, **kw)
+
+    def wkv6(r, k, v, logw, u, state=None, **kw):
+        B, T, H, K = r.shape
+        V, it = v.shape[-1], r.element_size()
+        rkw, vb, st = 3 * B * T * H * K * it, 2 * B * T * H * V * it, \
+            2 * B * H * K * V * 4
+        chunk = kw.get("chunk") or (kw.get("config") or ops.WkvConfig()).chunk
+        note(f"wkv6|cuda|b{B}|t{T}|h{H}|k{K}|v{V}|c{chunk}",
+             {"rkw": rkw, "v": vb, "state": st, "u": H * K * it,
+              "total": rkw + vb + st + H * K * it})
+        return orig["wkv6"](r, k, v, logw, u, state, **kw)
+
+    spies = {"conv2d": conv2d, "log_matmul": log_matmul,
+             "attention": attention, "wkv6": wkv6}
+    return {n: spies[n] for n in names}
+
+
+def _check_records(recs: list, expected: dict, launches: dict,
+                   what: str, steady: bool = True) -> dict:
+    """Hold the profiler's records of a run against the wrappers' launch
+    counts (summed calls per op) and against the keys and bytes noted by
+    `_spy_ops`: impl ``cuda``, a key of backend ``cuda`` that the spies
+    saw, the bytes of its first call, and with ``steady`` a steady time of
+    its own.  Keys whose calls moved different bytes (the key names no
+    dtype) are counted and printed."""
+    calls = {op: sum(r["calls"] for r in recs if r["op"] == op)
+             for op in launches}
+    if calls != launches or not all(launches.values()):
+        fail(f"{what}: profiler calls {calls} != kernel launches {launches}")
+    for r in recs:
+        if r["impl"] != "cuda" or r["key"].split("|")[1] != "cuda":
+            fail(f"{what}: record {r['op']} {r['key']} impl {r['impl']}")
+        if r["key"] not in expected or r["bytes"] != expected[r["key"]][0]:
+            fail(f"{what}: record {r['key']} bytes {r['bytes']} != the "
+                 f"model's {expected.get(r['key'])}")
+        if steady and (r["steady_source"] != "self"
+                       or not r["steady_us"] > 0):
+            fail(f"{what}: record {r['key']} has no steady time of its own "
+                 f"({r['steady_source']}, {r['steady_us']})")
+    mixed = [k for k, v in expected.items()
+             if any(b != v[0] for b in v)]
+    print(f"{what}: {len(recs)} records, profiler calls {calls} = kernel "
+          f"launches; bytes equal the models"
+          + (f"; keys with calls of different bytes: {mixed}" if mixed
+             else ""))
+    return {"records": len(recs), "calls": calls, "mixed_keys": mixed}
+
+
+def phase_profiler_lm(dev, engine) -> dict:
+    """18(c): gemma-2b's engine serving the 8 requests at the serve
+    defaults with the profiler on: the prefill and decode programs, the
+    records held by `_check_records`; then the decode-step ms with the
+    profiler off and on (alternating, min of two)."""
+    import copy
+    from repro_torch.launch import serve
+    from repro_torch.obs import kernel_profile as kprof
+    from repro_torch.serving.engine import ServeEngine
+    args = _serve_args(LM_ARCH)
+    cfg, wrappers, expected = engine.cfg, _wrappers(), {}
+    eng = ServeEngine(cfg, engine.params, engine.ecfg)
+    kprof.clear()
+    kprof.set_enabled(True)
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        with _patched(**_spy_ops(expected, ("log_matmul", "attention"))):
+            for r in serve.make_requests(args, cfg.vocab):
+                eng.submit(r)
+            eng.run()
+        torch.cuda.synchronize()
+        snap = eng.metrics_snapshot()["kernels"]
+    finally:
+        kprof.set_enabled(None)
+        kprof.clear()
+    launches = {op: wrappers[op].launches for op in ("log_matmul",
+                                                     "attention")}
+    progs = snap["programs"]
+    if not all(progs.get(p, {}).get("steady_us") for p in ("prefill",
+                                                          "decode")):
+        fail(f"{LM_ARCH}: the profiler's programs lack prefill or decode "
+             f"steady times: {progs}")
+    res = {"programs": progs,
+           **_check_records(snap["records"], expected, launches,
+                            f"{LM_ARCH} serve run under the profiler")}
+    res["rows"] = [record_row(r) for r in snap["records"]]
+    print(f"  programs: " + ", ".join(
+        f"{n} {p['calls']} calls, first {p['first_us']:.0f} µs, steady "
+        f"{p['steady_us']:.0f} µs" for n, p in progs.items()))
+
+    # the decode step with the profiler off and on, on one engine
+    a = copy.copy(args)
+    a.requests, a.max_new = args.max_batch, 40
+    eng = ServeEngine(cfg, engine.params, engine.ecfg)
+    for r in serve.make_requests(a, cfg.vocab):
+        eng.submit(r)
+    eng.step()
+    eng.step()
+    step = {"off": [], "on": []}
+    try:
+        for _ in range(2):
+            for mode in step:
+                kprof.set_enabled(mode == "on")
+                step[mode].append(1e3 * _host_time(eng.step, 5))
+    finally:
+        kprof.set_enabled(None)
+        kprof.clear()
+    res["decode_step_ms"] = {m: min(v) for m, v in step.items()}
+    res["decode_step_ms_trials"] = step
+    ms = res["decode_step_ms"]
+    print(f"  {LM_ARCH} decode step ({args.max_batch} busy slots, host "
+          f"clock, min of two): profiler off {ms['off']:.3f} ms, on "
+          f"{ms['on']:.3f} ms")
+    return res
+
+
+def phase_profiler(dev, lm_prof: dict, conv_times: dict) -> dict:
+    """18: the kernel-dispatch profiler on the card.  (a) one batch-8
+    forward of each net with the profiler on: the B1 records' calls equal
+    the kernel's launches, impl and backend ``cuda``, bytes equal
+    `conv_traffic_bytes("cuda")`; (b) every conv shape of the zoo in a
+    back-to-back loop of ``PROFILED_REPS`` calls after a first one: a
+    record's steady µs against the `torch.profiler` device time a call of
+    the same shape's calls in phase 6 (``conv_times``; late in a run the
+    profiler's windows lost kernel events, every one at last), held
+    within [0.9, 1.25] x + 10 µs for VGG-16's 13 shapes and printed for the
+    others, whose kernels may take less time than the host's call, so that
+    the events hold host time as well; (d) `ops.wkv6` at
+    rwkv6-1.6b's decode shape; (e) the top ten records by total time of
+    (a), (c) (`phase_profiler_lm`) and (d)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.models.cnn import (CNNS, make_cnn, trace_conv_shapes,
+                                        zoo_conv_shapes)
+    from repro_torch.obs import kernel_profile as kprof
+    from repro_torch.serving.quantize import quantize_cnn_params
+
+    def profiled(fn, spies=()):
+        """fn() with the profiler on (and the spies in place) → records."""
+        kprof.clear()
+        kprof.set_enabled(True)
+        try:
+            with _patched(**dict(spies)):
+                fn()
+            torch.cuda.synchronize()
+            return kprof.snapshot()["records"]
+        finally:
+            kprof.set_enabled(None)
+            kprof.clear()
+
+    res, rows = {"nets": {}}, list(lm_prof["rows"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
+    for name in CNNS:                                     # (a)
+        params, _ = make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)
+        net = quantize_cnn_params(params, conv_layout="lane_packed")
+        expected = {}
+        before = log_conv2d_fused.launches
+        with torch.no_grad():
+            recs = profiled(lambda: CNNS[name][1](
+                net, x, quant="logq6", conv_impl="auto"),
+                _spy_ops(expected, ("conv2d",)))
+        launched = log_conv2d_fused.launches - before
+        if launched != CONVS_PER_NET[name]:
+            fail(f"{name}: {launched} conv launches under the profiler, "
+                 f"expected {CONVS_PER_NET[name]}")
+        res["nets"][name] = _check_records(
+            recs, expected, {"conv2d": launched},
+            f"{name} forward under the profiler", steady=False)
+        rows += [record_row(r) for r in recs]
+        del params, net
+        torch.cuda.empty_cache()
+
+    # (b): the record's steady time against the device time of its loop
+    vgg = {sig(r) for r in trace_conv_shapes("vgg16", batch=BATCH, img=IMG,
+                                             n_classes=N_CLASSES)}
+    rng = np.random.default_rng(SEED + 7)
+    res["loops"], bad = {}, []
+    with torch.no_grad():
+        for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
+            xs, qt, *_ = make_conv(r, rng, dev)
+            kw = {k: r[k] for k in ("stride", "padding", "groups")}
+
+            def loop():
+                # outputs are dropped, so the allocator reuses one block:
+                # kept ones would make each call allocate within its events
+                for _ in range(PROFILED_REPS + 1):
+                    ops.conv2d(xs, qt, impl="cuda", **kw)
+            (rec,) = profiled(loop)
+            dev_us = conv_times[sig(r)]["ms"] * 1e3
+            held = sig(r) in vgg
+            ok = 0.9 * dev_us <= rec["steady_us"] <= 1.25 * dev_us + 10
+            res["loops"]["/".join(sig(r))] = {
+                "steady_us": rec["steady_us"], "device_us": dev_us,
+                "ratio": rec["steady_us"] / dev_us, "calls": rec["calls"],
+                "held": held, "within": ok}
+            print(f"profiled loop {'/'.join(sig(r))}"
+                  f"{' (VGG-16, held)' if held else ''}: steady "
+                  f"{rec['steady_us']:.2f} µs, device {dev_us:.2f} µs a "
+                  f"call, ratio {rec['steady_us'] / dev_us:.3f}"
+                  f"{'' if ok else ' OUTSIDE [0.9, 1.25] x + 10 µs'}")
+            if held and not ok:
+                bad.append(sig(r))
+            del xs, qt
+    if bad or sum(v["held"] for v in res["loops"].values()) != len(vgg):
+        fail(f"VGG-16 conv records outside [0.9, 1.25] x device time + "
+             f"10 µs (or missing): {bad}")
+
+    # (d): wkv6 at rwkv6-1.6b's decode shape
+    B, T, H, K = 4, 1, 32, 64
+    r_, k_, v_ = (torch.randn((B, T, H, K), generator=gen, device=dev)
+                  for _ in range(3))
+    logw = -torch.exp(torch.randn((B, T, H, K), generator=gen, device=dev))
+    u = torch.randn((H, K), generator=gen, device=dev)
+    state = torch.randn((B, H, K, K), generator=gen, device=dev)
+    expected, before = {}, wkv6_cuda.launches
+    recs = profiled(lambda: [ops.wkv6(r_, k_, v_, logw, u, state)
+                             for _ in range(PROFILED_REPS)],
+                    _spy_ops(expected, ("wkv6",)))
+    res["wkv6"] = _check_records(
+        recs, expected, {"wkv6": wkv6_cuda.launches - before},
+        f"wkv6 B={B} T={T} H={H} K=V={K} under the profiler")
+    rows += [record_row(r) for r in recs]
+    print_records(rows, "phase 18 (four nets, gemma-2b's serve run, wkv6)")
+    res["top"] = sorted(rows, key=lambda r: -r["total_us"])[:10]
+    res["profiler_calls"] = {
+        "log_conv2d_fused": sum(n["calls"]["conv2d"]
+                                for n in res["nets"].values()),
+        "log_matmul_cuda": lm_prof["calls"]["log_matmul"],
+        "flash_attention_cuda": lm_prof["calls"]["attention"],
+        "wkv6_cuda": res["wkv6"]["calls"]["wkv6"]}
+    return res
+
+
+BENCH_FILES = {"conv_kernels": "BENCH_torch_conv.json",
+               "attention_kernels": "BENCH_torch_attention.json",
+               "telemetry_overhead": "BENCH_torch_telemetry.json"}
+
+
+def phase_benches() -> dict:
+    """19: the bench twins on the card, through their CLI
+    (`python -m repro_torch.benchmarks.run --device cuda`) in a process of
+    their own, whose profiler windows start fresh (late in this process
+    they lost kernel events); their JSON under chiprun_out/.  The conv and
+    attention twins' correctness and analytic gates must hold; the
+    telemetry overhead (host clock) is printed, not held."""
+    import os
+    out = ROOT / "chiprun_out"
+    for name in BENCH_FILES.values():
+        (out / name).unlink(missing_ok=True)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--device",
+         "cuda", "--out", str(out)], cwd=ROOT, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    print(f"bench twins: {time.perf_counter() - t0:.1f} s, exit code "
+          f"{run.returncode} (1 where a twin's own gate failed)")
+    if run.returncode not in (0, 1) or not all(
+            (out / n).exists() for n in BENCH_FILES.values()):
+        fail("the bench twins did not run to their end")
+    res = {name: json.loads((out / f).read_text())
+           for name, f in BENCH_FILES.items()}
+    for name in ("conv_kernels", "attention_kernels"):
+        if not res[name]["ok"]:
+            fail(f"the {name} twin's correctness or traffic gate failed")
+    tel = res["telemetry_overhead"]
+    print(f"telemetry overhead (host clock, not held here): "
+          f"{tel['overhead_pct']:+.2f} % (the bench's own limit "
+          f"{tel['threshold_pct']} %); profiler on: "
+          f"{tel['profiled_overhead_pct']} %")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -2169,6 +2565,7 @@ def main() -> int:
     lm_engine = lm.pop("engine")
     lm_times = phase_matmul_times(dev, lm_engine, LM_ARCH)
     lm_times.update(phase_lm_times(dev, lm_engine))
+    lm_prof = phase_profiler_lm(dev, lm_engine)
     del lm_engine
     wk_rows, wk_err = phase_wkv6(dev)
     rw = phase_serving(dev, RWKV_ARCH)
@@ -2184,6 +2581,8 @@ def main() -> int:
         del paths[arch]["engine"]
         torch.cuda.empty_cache()
     rg, moe = paths[RG_ARCH], paths[MOE_ARCH]
+    prof = phase_profiler(dev, lm_prof, times)
+    benches = phase_benches()
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "event_ms", "plain_ms", "library_ms",
@@ -2198,7 +2597,8 @@ def main() -> int:
                 "bound_ms": t["bound_ms"],
                 "bound_by": ("operations" if t["ops_ms"] >= t["bytes_ms"]
                              else "bytes"),
-                "library_ms": t["library_ms"], **extra}
+                "library_ms": t["library_ms"],
+                "profiler_calls": prof["profiler_calls"][name], **extra}
 
     mm = lm_times[f"log_matmul M={lm['args']['max_batch']}"]
     conv_launches = {"cnn_slice": launches, "oracle": oracle["launches"],
@@ -2267,7 +2667,8 @@ def main() -> int:
          "rwkv_slice": rw, "wkv6_times": wk_times,
          "rwkv_log_matmul_times": rw_mm_times, "oracle": oracle,
          "example": example, "recurrentgemma_slice": rg,
-         "granite_moe_slice": moe,
+         "granite_moe_slice": moe, "lm_profiler": lm_prof,
+         "profiler": prof, "benches": benches,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -2281,7 +2682,9 @@ def main() -> int:
           f"and attention launches are those of the four LM main "
           f"paths (by path: {by_path}); log_conv2d launches those of "
           f"the CNN slice, whose convs its times cover (the oracle's and the "
-          f"example's in launches_by_path: {conv_launches})")
+          f"example's in launches_by_path: {conv_launches}); "
+          f"profiler_calls are the kernel-dispatch profiler's calls of each "
+          f"op in phase 18 (the four nets, gemma-2b's serve run, wkv6)")
     print(f"total wall time {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

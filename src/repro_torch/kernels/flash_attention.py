@@ -353,7 +353,8 @@ def mma_error_limit(q, k, v, *, causal=True, window=None, scale=None,
 def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
                             Hkv: int, D: int, *, block_q: int | None = None,
                             block_k: int | None = None,
-                            itemsize: int = 4) -> dict:
+                            itemsize: int = 4,
+                            kv_itemsize: int | None = None) -> dict:
     """Bytes moved between device memory and the chip for one attention
     call, per implementation (the model of `repro.kernels.flash_attention.
     attention_traffic_bytes`, with ``"cuda"`` for the GQA-native kernel).
@@ -368,16 +369,20 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
     and read once by the combine, which ``"total"`` counts beside q, K/V
     and out.  An explicit ``block_q`` (and ``block_k``, which no route's
     bytes depend on) models a one-pass kernel of that many rows a block, as
-    the JAX model does.  Returns ``{"q", "kv", "out", "total"}``."""
+    the JAX model does.  ``kv_itemsize`` (default ``itemsize``) is that of
+    k and v where it differs from q's (decode over an fp32 cache).  Returns
+    ``{"q", "kv", "out", "total"}``."""
     rep = H // Hkv
+    kv_itemsize = kv_itemsize or itemsize
     q_b = B * Tq * H * D * itemsize
     out_b = q_b
-    kv_arr = 2 * B * Tk * Hkv * D * itemsize         # K and V as stored
+    kv_arr = 2 * B * Tk * Hkv * D * kv_itemsize      # K and V as stored
     part = 0                                          # split-KV partials
     if impl == "cuda":                                # native GQA kernel
         if block_q is None:
-            dt = torch.bfloat16 if itemsize == 2 else torch.float32
-            geo = flash_attention_geometry(B, Tq, Tk, H, Hkv, D, dt, dt)
+            dt, kvdt = (torch.bfloat16 if n == 2 else torch.float32
+                        for n in (itemsize, kv_itemsize))
+            geo = flash_attention_geometry(B, Tq, Tk, H, Hkv, D, dt, kvdt)
             block_q = geo["rows"]
             if geo["splits"] > 1:                     # (m, l, acc) a row
                 part = 2 * 4 * geo["splits"] * B * Hkv * geo["row_blocks"] \
@@ -396,3 +401,12 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
         raise ValueError(f"unknown impl {impl!r}")
     return {"q": int(q_b), "kv": int(kv), "out": int(out_b),
             "total": int(q_b + kv + out_b + part)}
+
+
+def attention_key(B, Tq, Tk, H, Hkv, D, *, causal=True, window=None,
+                  backend: str = "cuda") -> str:
+    """Everything that changes an attention launch, as one namespaced key,
+    in the format of `repro.kernels.autotune.attention_key` (``backend``
+    is ``cuda`` or ``cpu``)."""
+    return (f"attention|{backend}|b{B}|q{Tq}|k{Tk}|h{H}.{Hkv}|d{D}"
+            f"|c{int(bool(causal))}|w{window if window is not None else '-'}")

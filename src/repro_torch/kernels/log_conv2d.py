@@ -21,6 +21,8 @@ contract (`kernels/ops.conv2d` dispatches between them):
 All take ``packed [K, K, Cin//groups, Cout]`` int8 codes with a
 per-output-channel (or scalar) fp scale, `stride`, `padding`
 ("SAME"/"VALID"/int/explicit pairs, XLA's SAME convention) and `groups`.
+`conv_traffic_bytes` models the bytes each implementation moves and
+`conv_key` names a conv's shape, for the kernel-dispatch profiler.
 """
 
 from __future__ import annotations
@@ -536,3 +538,125 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
 
 
 log_conv2d_fused.launches = 0  # kernel launches; chip_smoke.py resets it
+
+
+# ---------------------------------------------------------------------------
+# analytic device-memory traffic and the shape key
+# ---------------------------------------------------------------------------
+
+
+def _covered(n_out: int, tile: int, stride: int, pad: int, reach: int,
+             size: int) -> int:
+    """Input rows (or columns) that tiles of ``tile`` outputs fetch, summed
+    over the ``ceil(n_out / tile)`` tiles along one axis: tile ``i`` reads
+    the ``reach`` input indices from ``i * tile * stride - pad``, clipped
+    to ``[0, size)`` (indices outside the image are zero-filled, not
+    read)."""
+    total = 0
+    for i in range(_cdiv(n_out, tile)):
+        lo = i * tile * stride - pad
+        total += max(0, min(lo + reach, size) - max(lo, 0))
+    return total
+
+
+def _taps_inside(n_out: int, stride: int, pad: int, K: int,
+                 size: int) -> int:
+    """``_covered(n_out, 1, stride, pad, K, size)`` in K steps: for each tap
+    k, the outputs o with ``0 <= o * stride + k - pad < size``."""
+    return sum(max(0, min(n_out, (size - 1 + pad - k) // stride + 1)
+                   - max(0, -(-(pad - k) // stride))) for k in range(K))
+
+
+def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
+                       Cout: int, *, stride: int = 1, padding="SAME",
+                       groups: int = 1, act_itemsize: int = 4,
+                       code_itemsize: int = 1, bits: int = 6,
+                       n_sm: int = 132) -> dict:
+    """Bytes moved between device memory and the chip for one conv call,
+    per implementation → ``{"act", "w", "out", "act_w", "total"}``.
+
+    ``"fp32"`` (a float conv on fp32 weights), ``"blockwise"`` (decode,
+    then a float conv: x once, int8 codes once) and ``"ref"`` (modelled as
+    ``"fp32"``, as the JAX package's dispatch does) are the formulas of
+    `repro.kernels.log_conv2d.conv_traffic_bytes`, so both packages give
+    the same bytes for them.  ``"min"`` is the least any implementation
+    moves: x, the codes, the scale and y, each once (the byte count of a
+    conv's bound).
+
+    ``"cuda"`` counts what the kernel `csrc/log_conv2d.cu` fetches at the
+    launch shape of `log_conv2d_geometry` (on a card of ``n_sm`` SMs):
+
+      dense      each block reads the in-image x values of its rows for
+                 the reduction indices of its share (so x is read once per
+                 column tile; taps in the padding are zero-filled, not
+                 read), the codes of its share's rows and its columns (once
+                 per row tile) and the 2^(bits+1)-entry plane table; the
+                 scale is read once per row tile.  y is written once.
+                 With ``splits > 1`` every share writes its fp32 partials
+                 and the last share of a tile reads them all back
+                 (``"partials"``), beside one int32 ticket a tile, taken by
+                 an atomic of each share and reset once.
+      depthwise  each block stages its input patch, halo included, clipped
+                 to the image, its channels wide; it reads its K*K codes
+                 and its scales once for each channel; y is written once.
+
+    Accesses are counted first order: L2 hits and sub-sector waste are not
+    modelled.  JAX's ``lanes``, ``config`` and ``matmul_block`` are left
+    out: they model the TPU's whole-128-lane block DMAs and the explicit
+    im2col path ``pallas_im2col`` (not ported), neither of which the CUDA
+    kernel has; it reads natural and lane-packed codes alike, so its bytes
+    do not depend on the layout."""
+    pads = normalize_padding(padding, K, stride, H, W)
+    Ho, Wo = _out_size(H, K, stride, pads[0]), _out_size(W, K, stride, pads[1])
+    cin_g = C // groups
+    x_b = B * H * W * C * act_itemsize
+    out_b = B * Ho * Wo * Cout * act_itemsize
+    w_codes = K * K * cin_g * Cout * code_itemsize
+    part = 0
+    impl = {"ref": "fp32"}.get(impl, impl)
+    if impl == "fp32":
+        act, w = x_b, K * K * cin_g * Cout * act_itemsize
+    elif impl == "blockwise":
+        act, w = x_b, w_codes
+    elif impl == "min":
+        act, w = x_b, w_codes + 4 * Cout
+    elif impl == "cuda":
+        g = log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
+                                n_sm)
+        if g["path"] == "depthwise":
+            th, tw, ct = g["tile"]
+            rows = _covered(Ho, th, stride, pads[0][0], (th - 1) * stride + K,
+                            H)
+            cols = _covered(Wo, tw, stride, pads[1][0], (tw - 1) * stride + K,
+                            W)
+            act = B * rows * cols * Cout * act_itemsize
+            per_tile = B * g["tiles_h"] * g["tiles_w"]
+            w = per_tile * Cout * (K * K * code_itemsize + 4)
+        else:
+            rows = _taps_inside(Ho, stride, pads[0][0], K, H)
+            cols = _taps_inside(Wo, stride, pads[1][0], K, W)
+            act = g["n_tiles"] * groups * cin_g * B * rows * cols \
+                * act_itemsize
+            w = g["m_tiles"] * Cout * (K * K * cin_g * code_itemsize + 4) \
+                + g["blocks"] * (2 << bits) * 4
+            if g["splits"] > 1:
+                part = 2 * g["splits"] * B * Ho * Wo * Cout * 4 \
+                    + g["tiles"] * (8 * g["splits"] + 4)
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    out = {"act": int(act), "w": int(w), "out": int(out_b + part),
+           "act_w": int(act + w), "total": int(act + w + out_b + part)}
+    if impl == "cuda":
+        out["partials"] = int(part)
+    return out
+
+
+def conv_key(B, H, W, C, K, Cout, *, stride=1, padding="SAME", groups=1,
+             cfg: LogQuantConfig = DEFAULT_CFG, backend: str = "cuda") -> str:
+    """Everything that changes a conv's launch, as one namespaced key, in
+    the format of `repro.kernels.autotune.conv_key` (``backend`` is
+    ``cuda`` or ``cpu``)."""
+    (ph0, ph1), (pw0, pw1) = normalize_padding(padding, K, stride, H, W)
+    return (f"conv2d|{backend}|q{cfg.bits}.{cfg.frac_bits}"
+            f"|x{B}x{H}x{W}x{C}|k{K}o{Cout}|s{stride}|g{groups}"
+            f"|p{ph0}.{ph1}.{pw0}.{pw1}")

@@ -14,11 +14,17 @@ Every op takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
 plus a per-op frozen config: ``ConvConfig(lane_pack=...)`` for the
 grouped-conv layout, ``AttentionConfig`` for the blockwise version's chunk
 and math knobs, ``WkvConfig(chunk=...)`` for the chunked WKV.
+
+While the kernel-dispatch profiler is on (`obs.kernel_profile`), every op
+goes through `kernel_profile.dispatch` with its shape key and analytic
+bytes, in the formats of `repro.kernels.ops`; while it is off, neither is
+computed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Any
 
@@ -27,9 +33,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        quantize_tensor)
-from .flash_attention import flash_attention_cuda
-from .log_conv2d import (lane_unpack_codes, log_conv2d_blockwise,
-                         log_conv2d_fused, log_conv2d_ref)
+from repro_torch.obs import kernel_profile as _kprof
+from .flash_attention import (attention_key, attention_traffic_bytes,
+                              flash_attention_cuda)
+from .log_conv2d import (conv_key, conv_traffic_bytes, lane_unpack_codes,
+                         log_conv2d_blockwise, log_conv2d_fused,
+                         log_conv2d_ref, sm_count)
 from .log_matmul import log_matmul_cuda
 from .ref import positions, ref_attention, ref_log_matmul, ref_wkv6
 from .wkv6 import wkv6_chunked, wkv6_cuda
@@ -71,11 +80,22 @@ def log_matmul(x, qt: QuantizedTensor, *, impl: str = "auto"):
     scale = torch.as_tensor(qt.scale, dtype=torch.float32,
                             device=x.device).reshape(1, -1).expand(1, N)
     if impl == "cuda":
-        out = log_matmul_cuda(x2.contiguous(), qt.packed, scale, qt.cfg,
-                              out_dtype=x.dtype)
+        call = lambda: log_matmul_cuda(x2.contiguous(), qt.packed, scale,
+                                       qt.cfg, out_dtype=x.dtype)
     else:
         # blockwise == ref for a matmul (as in the JAX package)
-        out = ref_log_matmul(x2, qt.packed, scale, qt.cfg, out_dtype=x.dtype)
+        call = lambda: ref_log_matmul(x2, qt.packed, scale, qt.cfg,
+                                      out_dtype=x.dtype)
+    if _kprof.PROFILER.enabled():
+        M, it = x2.shape[0], x.element_size()
+        act, w, outb = M * K * it, K * N, M * N * it  # codes move as int8
+        traffic = {"act": act, "w": w, "out": outb,
+                   "total": act + w + outb}
+        key = f"log_matmul|{x.device.type}|m{M}|k{K}|n{N}"
+        out = _kprof.dispatch("log_matmul", impl, key, traffic, call,
+                              traced=_kprof.is_traced(x), device=x.device)
+    else:
+        out = call()
     return out.reshape(*lead, N)
 
 
@@ -138,13 +158,25 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
             packed = lane_unpack_codes(packed, qt.shape, meta_groups, g_b,
                                        cin_lane)
     kw = dict(stride=stride, padding=padding, groups=groups)
-    if impl == "cuda":
-        y = log_conv2d_fused(x, packed, qt.scale, qt.cfg, lane=lane, **kw)
-    elif impl == "ref":
-        y = log_conv2d_ref(x, packed, qt.scale, qt.cfg, **kw)
-    else:
-        y = log_conv2d_blockwise(x, packed, qt.scale, qt.cfg, **kw)
-    return y if out_dtype is None else y.to(out_dtype)
+    fn = {"cuda": functools.partial(log_conv2d_fused, lane=lane),
+          "ref": log_conv2d_ref, "blockwise": log_conv2d_blockwise}[impl]
+
+    def call():
+        y = fn(x, packed, qt.scale, qt.cfg, **kw)
+        return y if out_dtype is None else y.to(out_dtype)
+    if not _kprof.PROFILER.enabled():
+        return call()
+    B, H, W, C = x.shape
+    K, Cout = qt.shape[0], qt.shape[-1]
+    n_sm = sm_count(x.device.index) if x.is_cuda else 132
+    traffic = conv_traffic_bytes(impl, B, H, W, C, K, Cout, **kw,
+                                 act_itemsize=x.element_size(),
+                                 bits=qt.cfg.bits, n_sm=n_sm)
+    key = conv_key(B, H, W, C, K, Cout, **kw, cfg=qt.cfg,
+                   backend=x.device.type)
+    return _kprof.dispatch("conv2d", impl, key, traffic, call,
+                           traced=_kprof.is_traced(x, packed),
+                           device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -282,12 +314,24 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
     if impl == "ref":
-        return ref_attention(q, k, v, **kw)
-    if impl == "blockwise":
-        return _blockwise_attention(
+        call = lambda: ref_attention(q, k, v, **kw)
+    elif impl == "blockwise":
+        call = lambda: _blockwise_attention(
             q, k, v, **kw, block_k=config.block_k or 1024,
             acc_dtype=config.acc_dtype, gqa_broadcast=config.gqa_broadcast)
-    return flash_attention_cuda(q, k, v, **kw)
+    else:
+        call = lambda: flash_attention_cuda(q, k, v, **kw)
+    if not _kprof.PROFILER.enabled():
+        return call()
+    Tk = k.shape[1]
+    traffic = attention_traffic_bytes(impl, B, Tq, Tk, H, Hkv, D,
+                                      itemsize=q.element_size(),
+                                      kv_itemsize=k.element_size())
+    key = attention_key(B, Tq, Tk, H, Hkv, D, causal=causal, window=window,
+                        backend=q.device.type)
+    return _kprof.dispatch("attention", impl, key, traffic, call,
+                           traced=_kprof.is_traced(q, k, v),
+                           device=q.device)
 
 
 # ---------------------------------------------------------------------------
@@ -315,10 +359,25 @@ def wkv6(r, k, v, logw, u, state=None, *, impl: str = "auto",
     impl = resolve_impl("wkv6", impl, r.device)
     chunk = chunk if chunk is not None else (config or WkvConfig()).chunk
     if impl == "ref":
-        return ref_wkv6(r, k, v, logw, u, state)
-    if impl == "blockwise":
-        return wkv6_chunked(r, k, v, logw, u, state, chunk=chunk)
-    return wkv6_cuda(*(t.contiguous() for t in (r, k, v, logw)),
-                     u.to(torch.float32).contiguous(),
-                     None if state is None
-                     else state.to(torch.float32).contiguous())
+        call = lambda: ref_wkv6(r, k, v, logw, u, state)
+    elif impl == "blockwise":
+        call = lambda: wkv6_chunked(r, k, v, logw, u, state, chunk=chunk)
+    else:
+        call = lambda: wkv6_cuda(
+            *(t.contiguous() for t in (r, k, v, logw)),
+            u.to(torch.float32).contiguous(),
+            None if state is None else state.to(torch.float32).contiguous())
+    if not _kprof.PROFILER.enabled():
+        return call()
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    it = r.element_size()
+    rkw = 3 * B * T * H * K * it            # r, k and per-step decay logw
+    vb = 2 * B * T * H * V * it             # v in, wkv out
+    st = 2 * B * H * K * V * 4              # state read + write (f32)
+    traffic = {"rkw": rkw, "v": vb, "state": st, "u": H * K * it,
+               "total": rkw + vb + st + H * K * it}
+    key = f"wkv6|{r.device.type}|b{B}|t{T}|h{H}|k{K}|v{V}|c{chunk}"
+    return _kprof.dispatch("wkv6", impl, key, traffic, call,
+                           traced=_kprof.is_traced(r, k, v, logw, u, state),
+                           device=r.device)

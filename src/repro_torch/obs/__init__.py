@@ -1,15 +1,17 @@
-"""Runtime telemetry, copied from the framework-free half of `repro.obs`.
+"""Runtime telemetry, the counterpart of `repro.obs`.
 
-  `trace`    ring-buffer span tracer → Chrome-trace/Perfetto JSON
-             (``REPRO_TRACE=1``, ``REPRO_TRACE_PATH=...``)
-  `metrics`  counters / gauges / log-bucketed histograms, JSON snapshot +
-             Prometheus text exposition
+  `trace`          ring-buffer span tracer → Chrome-trace/Perfetto JSON
+                   (``REPRO_TRACE=1``, ``REPRO_TRACE_PATH=...``); a copy
+  `metrics`        counters / gauges / log-bucketed histograms, JSON
+                   snapshot + Prometheus text exposition; a copy
+  `kernel_profile` per-dispatch kernel records behind `kernels/ops.py`:
+                   op, impl, shape key, analytic bytes and first/steady
+                   time, by CUDA events on the card
+                   (``REPRO_KERNEL_PROFILE=1`` or ``REPRO_TRACE=1``)
 
-The kernel-dispatch profiler (`repro.obs.kernel_profile`) is not ported
-yet (ROADMAP.md queue A, item 10).  Consumer:
-`serving.engine.ServeEngine.metrics_snapshot()`.
+Consumer: `serving.engine.ServeEngine.metrics_snapshot()`.
 """
 
-from . import metrics, trace  # noqa: F401
+from . import kernel_profile, metrics, trace  # noqa: F401
 
-__all__ = ["trace", "metrics"]
+__all__ = ["trace", "metrics", "kernel_profile"]

@@ -33,10 +33,13 @@ output is the same in both.
 
 The `stats` counters are always kept; with telemetry on, the engine also
 records per-request timelines, TTFT / prefill / decode-step / tokens-per-s
-histograms and queue / slot gauges on its own metrics registry.  Times are
-host-clock and end in a device synchronisation (the sampled tokens are
-read back).  There is no kernel-dispatch profiler yet (ROADMAP.md queue A,
-item 10), so `metrics_snapshot()` has no ``"kernels"`` entry.
+histograms and queue / slot gauges on its own metrics registry, and runs
+each prefill and decode step as a program of the kernel-dispatch profiler
+(`obs.kernel_profile.time_program`: a "prefill" / "decode" span and
+first/steady program times while profiling is on).  Times are host-clock
+and end in a device synchronisation (the sampled tokens are read back).
+`metrics_snapshot()["kernels"]` holds the profiler's per-dispatch records
+(op, impl, shape key, analytic bytes, first/steady µs) and programs.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 
 from repro_torch.kernels.ops import resolve_impl
 from repro_torch.models import transformer
+from repro_torch.obs import kernel_profile as obs_kprof
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -83,8 +87,9 @@ class EngineConfig:
     # (the CUDA kernel on the card, blockwise on the CPU) or any
     # `ops.attention` impl
     attn_impl: str = "auto"
-    # "auto": timeline/histogram/span work follows the trace gate
-    # (REPRO_TRACE); "on"/"off" force it.  `stats` is always kept.
+    # "auto": timeline/histogram/span work follows the trace and profiler
+    # gates (REPRO_TRACE, REPRO_KERNEL_PROFILE); "on"/"off" force it.
+    # `stats` is always kept.
     telemetry: str = "auto"
 
 
@@ -154,7 +159,7 @@ class ServeEngine:
             return False
         if mode == "on":
             return True
-        return obs_trace.TRACER.enabled()
+        return obs_trace.TRACER.enabled() or obs_kprof.PROFILER.enabled()
 
     @property
     def stats(self) -> dict:
@@ -166,9 +171,12 @@ class ServeEngine:
     def metrics_snapshot(self) -> dict:
         """One JSON-able dict with everything measured so far: the engine's
         own registry (TTFT/tokens-per-s histograms, gauges, counters), the
-        `stats` view and the process-wide default registry."""
+        `stats` view, the process-wide kernel-dispatch records (per-op
+        impl, bytes moved, first/steady µs, the prefill/decode programs)
+        and the default registry (kernel-dispatch histograms)."""
         return {"engine": self.metrics.snapshot(),
                 "stats": self.stats,
+                "kernels": obs_kprof.PROFILER.snapshot(),
                 "global": obs_metrics.REGISTRY.snapshot()}
 
     # ------------------------------------------------------------ plumbing
@@ -220,7 +228,11 @@ class ServeEngine:
                                 tokens=len(req.prompt)) if tele else _NULL_CTX:
                 if tele:
                     req.timeline["prefill_start"] = t0
-                tok = self._sample(self._prefill(slot, req.prompt), req)
+                run_prefill = lambda: self._prefill(slot, req.prompt)
+                logits = (obs_kprof.PROFILER.time_program("prefill",
+                                                          run_prefill)
+                          if tele else run_prefill())
+                tok = self._sample(logits, req)
                 self.slot_req[slot] = req
                 req.output.append(tok)
                 self.slot_pos[slot] = len(req.prompt)
@@ -288,7 +300,8 @@ class ServeEngine:
             self._g_slots.set(busy)
             self._g_queue.set(len(self.queue))
             t0 = time.perf_counter()
-        logits = self._decode()
+        logits = (obs_kprof.PROFILER.time_program("decode", self._decode)
+                  if tele else self._decode())
         greedy = logits.argmax(dim=-1).tolist()
         self._c_decode.inc()
         for i, req in enumerate(self.slot_req):

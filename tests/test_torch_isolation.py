@@ -33,6 +33,11 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert len(PORT_FILES) >= 10
     models = {p.name for p in PORT_FILES if p.parent.name == "models"}
     assert {"griffin.py", "moe.py", "rwkv.py", "transformer.py"} <= models
+    obs = {p.name for p in PORT_FILES if p.parent.name == "obs"}
+    assert "kernel_profile.py" in obs
+    benches = {p.name for p in PORT_FILES if p.parent.name == "benchmarks"}
+    assert {"common.py", "conv_kernels.py", "attention_kernels.py",
+            "telemetry_overhead.py", "run.py"} <= benches
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

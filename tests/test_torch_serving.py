@@ -281,7 +281,22 @@ def test_engine_temperature_sampling_deterministic_per_seed():
     assert len(run_once(7)) == 5
 
 
-def test_serve_main_runs_to_the_end(tmp_path, capsys):
+@pytest.fixture
+def kernel_profile():
+    """The kernel-dispatch profiler, empty and deferring to the env gates,
+    before and after the test."""
+    from repro_torch.obs import kernel_profile as kprof
+    kprof.set_enabled(None)
+    kprof.clear()
+    yield kprof
+    kprof.set_enabled(None)
+    kprof.clear()
+
+
+def test_serve_main_runs_to_the_end(tmp_path, capsys, monkeypatch,
+                                    kernel_profile):
+    monkeypatch.delenv("REPRO_TRACE", raising=False)
+    monkeypatch.delenv("REPRO_KERNEL_PROFILE", raising=False)
     out = tmp_path / "metrics.json"
     done = tserve.main(["--reduced", "--device", "cpu", "--requests", "3",
                         "--max-new", "4", "--telemetry", "on",
@@ -292,7 +307,25 @@ def test_serve_main_runs_to_the_end(tmp_path, capsys):
     assert snap["stats"] == {"prefill_calls": 3, "decode_steps": 3,
                              "tokens_out": 12}
     assert snap["engine"]["histograms"]["serve_ttft_s"]["count"] == 3
-    assert "kernels" not in snap   # no kernel-dispatch profiler yet
+    # the profiler is off: its section is there and empty
+    assert snap["kernels"] == {"records": [], "programs": {}}
+
+
+def test_serve_metrics_out_has_kernel_records(tmp_path, monkeypatch,
+                                              kernel_profile):
+    """With ``REPRO_KERNEL_PROFILE=1``, ``--metrics-out`` writes the
+    profiler's records: every packed product and attention call of the run,
+    and the prefill and decode programs."""
+    monkeypatch.setenv("REPRO_KERNEL_PROFILE", "1")
+    out = tmp_path / "metrics.json"
+    tserve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                 "--max-new", "4", "--metrics-out", str(out)])
+    kern = json.loads(out.read_text())["kernels"]
+    assert {r["op"] for r in kern["records"]} == {"log_matmul", "attention"}
+    assert all(r["key"].split("|")[1] == "cpu" and r["bytes"]["total"] > 0
+               for r in kern["records"])
+    assert kern["programs"]["prefill"]["calls"] == 3
+    assert kern["programs"]["decode"]["calls"] == 3
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
