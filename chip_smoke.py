@@ -198,7 +198,36 @@ goes wrong:
      attention_kernels, telemetry_overhead) through their CLI in a process
      of their own, their JSON under `chiprun_out/`; the conv and attention
      twins' correctness and traffic gates must hold, the telemetry
-     overhead is printed.
+     overhead is printed;
+ 20. LM training (`repro_torch.training`, `launch/train.py`), which runs
+     no kernel: attention and the RWKV recurrence take their plain,
+     differentiable versions (``attn_impl="blockwise"``).  (a) One step of
+     the trainer (SGD with momentum, whose update is linear in the
+     gradient) on reduced gemma-2b, rwkv6-1.6b, recurrentgemma-2b,
+     granite-moe-1b-a400m and musicgen-large (embedding inputs), fp32
+     activations, from the same params and batch on the CPU and the card:
+     loss and gradient norm within 1e-4 relative, every updated leaf
+     within 1e-4 * (max|p| + 1).  (b) `launch/train.py` at gemma-2b, full
+     width and depth, its defaults (batch 8 x 128, AdamW, remat, bf16
+     activations) but ``--steps 8 --log-every 1``, in a process of its own
+     (``chip_smoke.py --train-gemma``): every loss and gradient norm finite
+     and printed, each step's time (its ``train_step`` trace span, which
+     the loop's step event makes with the histogram's sample), their
+     median after the first step, tokens/s at it, the peak device memory,
+     and one more step of a fresh state under `torch.profiler` (busy ms,
+     kernels, the top five).  (c) The four wrappers' launch counts read 0
+     across (a) and (b), and each wrapper raises on a card input that
+     requires grad.  (d) `resume_check` in a process of its own
+     (``chip_smoke.py --resume-check``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``
+     set before CUDA starts): a 2-layer gemma-2b of width 512 trained 6
+     steps straight against 3, a checkpoint, a restore and 3 more, bit for
+     bit under `torch.use_deterministic_algorithms` (with the default
+     algorithms the differing leaves are printed);
+ 21. the example twins on the card: `examples/train_lm` at its defaults
+     (300 steps of the ~115M logq6 model with compressed gradients; its
+     assertion that the loss falls by more than 1.0), `serve_lm` (its spot
+     check against naive decode; the attention kernel must launch) and
+     `quickstart` (step 5 launches B2 once).
 
 Phases 5, 9, 12, 14, 15, 16 and 17 drive the main paths: the kernels'
 launch counts are set to 0 just before each and read just after.
@@ -2521,6 +2550,400 @@ def phase_benches() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 20: LM training on the card; 21: the example twins
+# ---------------------------------------------------------------------------
+
+# phase 20(a): one train step each, card against CPU, fp32 activations
+TRAIN_ARCHS = ("gemma-2b", "rwkv6-1.6b", "recurrentgemma-2b",
+               "granite-moe-1b-a400m", "musicgen-large")
+TRAIN_REL = 1e-4   # loss and grad norm: relative; leaves: x (max|p| + 1)
+
+
+def _train_batch(cfg, b: int = 4, t: int = 16) -> dict:
+    """The loader's batch for ``cfg`` (numpy, seed 0); an embedding-input
+    arch gets embeddings from a numpy seed in place of the tokens."""
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    batch = ShardedLoader(DataConfig(seq_len=t, global_batch=b,
+                                     vocab=cfg.vocab)).batch(0)
+    if not cfg.embed_inputs:
+        batch["embeds"] = np.random.default_rng(0).normal(
+            size=(b, t, cfg.d_model)).astype(np.float32)
+        del batch["tokens"]
+    return batch
+
+
+def _one_step(cfg, params, batch):
+    """One step of the port's trainer (SGD with momentum: its update is
+    linear in the gradient, so two correct gradients give close leaves,
+    where AdamW's first step, about lr·sign(g), moves by 2·lr wherever the
+    sign of a near-zero element differs) → (params, metrics)."""
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    tcfg = TrainConfig(opt=OptimizerConfig(name="sgd", lr=1e-2,
+                                           warmup_steps=0,
+                                           schedule="constant"))
+    step = make_train_step(
+        lambda p, b: transformer.lm_loss(p, b, cfg, xent_chunk=8), tcfg)
+    state, metrics = step(init_train_state(params, tcfg), batch)
+    return state["params"], {k: float(v) for k, v in metrics.items()}
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _leaves(v, f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def _train_card_vs_cpu(dev) -> dict:
+    """20(a): each arch of `TRAIN_ARCHS`, reduced, one step on the CPU and
+    one on the card from the same initial params and batch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  attn_impl="blockwise")
+        # drawn on the CPU twice (the steps update params in place)
+        p_cpu = transformer.init_params(cfg, SEED, device="cpu")
+        p_card = _to_device(transformer.init_params(cfg, SEED, device="cpu"),
+                            dev)
+        batch = _train_batch(cfg)
+        new_cpu, m_cpu = _one_step(cfg, p_cpu, batch)
+        new_card, m_card = _one_step(cfg, p_card, batch)
+        worst = 0.0
+        for (name, a), (_, c) in zip(_leaves(new_cpu), _leaves(new_card)):
+            a = a.detach()
+            err = float((c.detach().cpu() - a).abs().max())
+            tol = TRAIN_REL * (float(a.abs().max()) + 1)
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                fail(f"training {arch}: leaf {name} differs by {err} on the "
+                     f"card (tolerance {tol})")
+        for k in ("loss", "grad_norm"):
+            if not abs(m_card[k] - m_cpu[k]) <= TRAIN_REL * abs(m_cpu[k]):
+                fail(f"training {arch}: {k} {m_card[k]} on the card, "
+                     f"{m_cpu[k]} on the CPU")
+        out[arch] = {"loss_card": m_card["loss"], "loss_cpu": m_cpu["loss"],
+                     "grad_norm_card": m_card["grad_norm"],
+                     "grad_norm_cpu": m_cpu["grad_norm"],
+                     "leaves": len(_leaves(new_cpu)),
+                     "worst_err_over_tol": worst}
+        print(f"train step {arch} (reduced, fp32): loss {m_card['loss']:.6f}"
+              f" card / {m_cpu['loss']:.6f} CPU, grad norm "
+              f"{m_card['grad_norm']:.6f} / {m_cpu['grad_norm']:.6f}; "
+              f"{out[arch]['leaves']} leaves, worst err/tol {worst:.4f}")
+    return out
+
+
+def _grad_guard(dev) -> dict:
+    """20(c): each kernel wrapper, called on the card with an input that
+    requires grad, raises (and under no_grad runs)."""
+    from repro_torch.core.logquant import quantize_tensor
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    qm = quantize_tensor(rn(64, 32))
+    qc = quantize_tensor(rn(3, 3, 4, 8))
+    calls = {
+        "log_matmul_cuda": (lambda x: log_matmul_cuda(x, qm.packed, qm.scale),
+                            (4, 64)),
+        "log_conv2d_fused": (lambda x: log_conv2d_fused(x, qc.packed,
+                                                        qc.scale),
+                             (1, 6, 6, 4)),
+        "flash_attention_cuda": (lambda x: flash_attention_cuda(
+            x, x[:, :, :1].contiguous(), x[:, :, :1].contiguous()),
+            (1, 8, 2, 64)),
+        "wkv6_cuda": (lambda x: wkv6_cuda(
+            x, x, x, -torch.ones_like(x), torch.zeros(2, 16, device=dev)),
+            (1, 3, 2, 16))}
+    out = {}
+    for name, (call, shape) in calls.items():
+        x = rn(*shape).requires_grad_(True)
+        try:
+            call(x)
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                raise
+            out[name] = str(e).split(":")[0]
+        else:
+            fail(f"{name} ran on an input that requires grad")
+        with torch.no_grad():
+            call(x)
+    torch.cuda.synchronize()
+    print(f"grad guard: {sorted(out)} raise on an input that requires grad "
+          f"on the card, and run under no_grad")
+    return out
+
+
+RESUME_STEPS = 3   # 20(d): 2 x RESUME_STEPS straight against a resume
+
+
+def resume_check(dev=None) -> int:
+    """20(d), in a process of its own (``chip_smoke.py --resume-check``,
+    with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts):
+    gemma-2b at 2 layers of width 512 (vocab 8192, bf16 activations,
+    AdamW), 2·RESUME_STEPS steps straight against RESUME_STEPS, a
+    checkpoint, a restore and RESUME_STEPS more, first with the default
+    algorithms (printed), then under `torch.use_deterministic_algorithms`
+    (bit for bit, or it fails).  Prints one JSON line."""
+    import os
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.models import transformer
+    from repro_torch.runtime.checkpoint import (load_checkpoint,
+                                                save_checkpoint)
+    from repro_torch.training.optimizer import OptimizerConfig, tree_map
+    from repro_torch.training.train_loop import TrainConfig, train
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        fail("the resume check needs CUBLAS_WORKSPACE_CONFIG=:4096:8")
+    dev = dev or torch.device("cuda", 0)
+    cfg = dataclasses.replace(
+        get_config("gemma-2b"), n_layers=2, d_model=512, d_ff=2048,
+        n_heads=8, head_dim=64, vocab=8192, attn_impl="blockwise")
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=1e-3, warmup_steps=0,
+                                           schedule="constant",
+                                           total_steps=10), log_every=1)
+    ld = ShardedLoader(DataConfig(seq_len=128, global_batch=8,
+                                  vocab=cfg.vocab, seed=1))
+    loss_fn = lambda p, b: transformer.lm_loss(p, b, cfg)  # noqa: E731
+    fresh = lambda: transformer.init_params(cfg, SEED, device=dev)  # noqa
+
+    def differing(deterministic: bool) -> tuple[list, list, list]:
+        torch.use_deterministic_algorithms(deterministic)
+        sA, hA = train(loss_fn, fresh(), ld, tcfg,
+                       num_steps=2 * RESUME_STEPS)
+        sB, _ = train(loss_fn, fresh(), ld, tcfg, num_steps=RESUME_STEPS)
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, RESUME_STEPS, sB)
+            tpl = tree_map(lambda t: t.to("meta"), sB)
+            sB2, step = load_checkpoint(d, tpl, device=dev)
+        sB2, hB = train(loss_fn, None, ld, tcfg, num_steps=RESUME_STEPS,
+                        start_step=step, state=sB2)
+        bad = [name for (name, a), (_, b) in zip(_leaves(sA["params"]),
+                                                 _leaves(sB2["params"]))
+               if not torch.equal(a, b)]
+        return bad, [h["loss"] for h in hA], [h["loss"] for h in hB]
+
+    bad_default, _, _ = differing(False)
+    bad_det, lossA, lossB = differing(True)
+    print(json.dumps({"resume": {
+        "params": cfg.param_count(), "steps": 2 * RESUME_STEPS,
+        "leaves": len(_leaves(fresh())),
+        "differing_leaves_default": bad_default,
+        "differing_leaves_deterministic": bad_det,
+        "loss_straight": lossA, "loss_resumed": lossB}}))
+    return 0
+
+
+def train_gemma_check() -> int:
+    """20(b), in a process of its own (``chip_smoke.py --train-gemma``),
+    whose `torch.profiler` window starts fresh: `launch/train.py` at
+    gemma-2b, full width and depth, its defaults but ``--steps 8
+    --log-every 1``; each step's time from its ``train_step`` trace span
+    (the loop's step event makes it with the histogram's sample); the four
+    wrappers' launches; then one more step of a fresh state under
+    `torch.profiler` (after a warm-up step) for the breakdown.  Prints one
+    JSON line."""
+    import gc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_loop import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    wrappers = dict(_wrappers(), conv2d=log_conv2d_fused)
+    args = train.parse_args(["--arch", LM_ARCH, "--steps", "8",
+                             "--log-every", "1"])
+    obs_trace.set_enabled(True)
+    res = train.run(args)
+    obs_trace.set_enabled(None)
+    step_ms = [ev[3] / 1e6 for ev in obs_trace.events()
+               if ev[1] == "train_step"]
+    launches = {name: w.launches for name, w in wrappers.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's config and trainer, rebuilt for one profiled step
+    cfg = dataclasses.replace(get_config(args.arch), attn_impl="blockwise")
+    if args.reduced:
+        cfg = cfg.reduced()
+    tcfg = TrainConfig(opt=OptimizerConfig(lr=args.lr, warmup_steps=1,
+                                           total_steps=args.steps),
+                       xent_chunk=args.seq)
+    state = init_train_state(
+        transformer.init_params(cfg, args.seed, device=args.device), tcfg)
+    step = make_train_step(
+        lambda p, b: transformer.lm_loss(p, b, cfg, xent_chunk=args.seq),
+        tcfg)
+    batch = ShardedLoader(DataConfig(seq_len=args.seq,
+                                     global_batch=args.batch,
+                                     vocab=cfg.vocab)).batch(0)
+    t0 = time.perf_counter()
+    prof = profile_forward(lambda: step(state, batch))
+    prof["two_steps_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    print(json.dumps({"train_gemma": {
+        "params": cfg.param_count(),
+        "losses": [h["loss"] for h in res["history"]],
+        "grad_norms": [h["grad_norm"] for h in res["history"]],
+        "step_ms": step_ms,
+        "histogram_p50_ms": res["step_s"]["p50"] * 1e3,
+        "histogram_p99_ms": res["step_s"]["p99"] * 1e3,
+        "peak_gb": res["peak_bytes"] / 1e9, "kernel_launches": launches,
+        "profiled_step": prof}}))
+    return 0
+
+
+def _subprocess(flag: str, **env) -> dict:
+    """``chip_smoke.py <flag>`` in a process of its own → the value of its
+    last JSON line ``{key: value}``."""
+    import os
+    sys.stdout.flush()
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag], cwd=ROOT,
+        timeout=600, capture_output=True, text=True,
+        env=dict(os.environ, **env))
+    print(run.stdout[-6000:], end="")
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    if run.returncode != 0 or not lines:
+        print(run.stderr[-4000:])
+        fail(f"chip_smoke.py {flag} did not run to its end")
+    return next(iter(json.loads(lines[-1]).values()))
+
+
+def _gemma_training() -> dict:
+    """20(b) through `train_gemma_check`: every loss finite, no kernel
+    launched; the step times and the profiled step's breakdown printed."""
+    res = _subprocess("--train-gemma")
+    losses = res["losses"] + res["grad_norms"]
+    if len(res["losses"]) != 8 or not all(np.isfinite(losses)):
+        fail(f"gemma-2b training: losses {res['losses']}, grad norms "
+             f"{res['grad_norms']}")
+    steady = float(np.median(res["step_ms"][1:]))  # the first step warms up
+    prof = res["profiled_step"]
+    res.update(step_ms_median_after_first=steady,
+               tokens_per_s=8 * 128 / (steady / 1e3),
+               idle_share=1 - prof["device_busy_ms"] / steady)
+    print(f"gemma-2b training ({res['params'] / 1e9:.3f} G params, batch 8 "
+          f"x 128): step ms {[round(t, 3) for t in res['step_ms']]} "
+          f"(train_step spans), median after the first {steady:.3f} ms, "
+          f"{res['tokens_per_s']:.1f} tokens/s at it (histogram p50 bucket "
+          f"{res['histogram_p50_ms']:.1f} ms); peak {res['peak_gb']:.2f} GB; "
+          f"profiled step: {prof['device_kernels']} device kernels, busy "
+          f"{prof['device_busy_ms']:.3f} ms (idle share against the median "
+          f"step {res['idle_share']:.3f}), top {prof['top_kernels_ms']}")
+    return res
+
+
+def phase_training(dev) -> dict:
+    """20: LM training on the card.  (a) one step card against CPU per arch
+    (`_train_card_vs_cpu`); (b) gemma-2b at full width and depth through
+    `launch/train.py` (`train_gemma_check`, in a process of its own); (c)
+    no kernel launched in (a) and (b), and every wrapper refusing an input
+    that requires grad; (d) a bit-exact resume under deterministic
+    algorithms (`resume_check`, in a process of its own)."""
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    t0 = time.perf_counter()
+    wrappers = dict(_wrappers(), conv2d=log_conv2d_fused)
+    for w in wrappers.values():
+        w.launches = 0
+    out = {"card_vs_cpu": _train_card_vs_cpu(dev)}
+    launches = {name: w.launches for name, w in wrappers.items()}
+    out["card_vs_cpu_wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["gemma_2b"] = _gemma_training()
+    out["gemma_2b"]["wall_s"] = time.perf_counter() - t1
+    out["kernel_launches"] = {"card_vs_cpu": launches,
+                              "gemma_2b": out["gemma_2b"]["kernel_launches"]}
+    if any(v for d in out["kernel_launches"].values() for v in d.values()):
+        fail(f"a kernel launched during training: {out['kernel_launches']}")
+    out["grad_guard"] = _grad_guard(dev)
+    t2 = time.perf_counter()
+    res = _subprocess("--resume-check", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    print(f"resume ({res['params'] / 1e6:.1f} M params, bf16, "
+          f"{res['steps']} steps, {res['leaves']} leaves): differing leaves "
+          f"{len(res['differing_leaves_default'])} with the default "
+          f"algorithms ({res['differing_leaves_default'][:4]}), "
+          f"{len(res['differing_leaves_deterministic'])} under "
+          f"deterministic algorithms; last loss {res['loss_straight'][-1]:.6f}"
+          f" straight, {res['loss_resumed'][-1]:.6f} resumed")
+    if res["differing_leaves_deterministic"]:
+        fail(f"resume under deterministic algorithms differs in "
+             f"{res['differing_leaves_deterministic']}")
+    out["resume"] = dict(res, wall_s=time.perf_counter() - t2)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"training phase: kernel launches {out['kernel_launches']}; wall "
+          f"{out['wall_s']:.1f} s ((a) {out['card_vs_cpu_wall_s']:.1f} s, "
+          f"(b) {out['gemma_2b']['wall_s']:.1f} s, (d) "
+          f"{out['resume']['wall_s']:.1f} s)")
+    return out
+
+
+def phase_example_twins(dev) -> dict:
+    """21: the three example twins on the card: `train_lm` at its defaults
+    (300 steps of the ~100M logq6 model with compressed gradients, its
+    assertion that the loss falls by more than 1.0), `serve_lm` with its
+    spot check against naive decode, `quickstart`, whose step 5 must
+    launch B2 once."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_matmul import log_matmul_cuda
+    out = {}
+    t0 = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="train_lm_")
+    try:
+        hist = train_lm.main(["--ckpt-dir", ckpt])
+    except AssertionError as e:
+        fail(f"train_lm: {e}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["train_lm"] = {"first_loss": hist[0]["loss"],
+                       "final_loss": hist[-1]["loss"],
+                       "wall_s": time.perf_counter() - t0}
+    print(f"train_lm: loss {hist[0]['loss']:.4f} → {hist[-1]['loss']:.4f} "
+          f"(lowest logged {min(h['loss'] for h in hist):.4f}) in "
+          f"{hist[-1]['step'] + 1} steps, {out['train_lm']['wall_s']:.1f} s")
+    t1 = time.perf_counter()
+    flash_attention_cuda.launches = 0
+    try:
+        done = serve_lm.main([])
+    except AssertionError:
+        fail("serve_lm: the greedy request does not match naive decode")
+    out["serve_lm"] = {"requests": len(done),
+                       "attention_launches": flash_attention_cuda.launches,
+                       "wall_s": time.perf_counter() - t1}
+    if not flash_attention_cuda.launches:
+        fail("serve_lm launched no attention kernel")
+    log_matmul_cuda.launches = 0
+    res = quickstart.main([])
+    out["quickstart"] = {**res, "log_matmul_launches":
+                         log_matmul_cuda.launches}
+    if log_matmul_cuda.launches != 1:
+        fail(f"quickstart's step 5 launched B2 {log_matmul_cuda.launches} "
+             f"times, expected 1")
+    if not res["grid_matches"]:
+        fail("quickstart: the PE grid's conv differs from a plain conv")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"example twins: serve_lm {len(done)} requests with "
+          f"{out['serve_lm']['attention_launches']} attention launches; "
+          f"quickstart B2 launches 1; wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -2583,6 +3006,8 @@ def main() -> int:
     rg, moe = paths[RG_ARCH], paths[MOE_ARCH]
     prof = phase_profiler(dev, lm_prof, times)
     benches = phase_benches()
+    training = phase_training(dev)
+    twins = phase_example_twins(dev)
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "event_ms", "plain_ms", "library_ms",
@@ -2668,7 +3093,8 @@ def main() -> int:
          "rwkv_log_matmul_times": rw_mm_times, "oracle": oracle,
          "example": example, "recurrentgemma_slice": rg,
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
-         "profiler": prof, "benches": benches,
+         "profiler": prof, "benches": benches, "training": training,
+         "example_twins": twins,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -2695,4 +3121,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit({"--resume-check": resume_check,
+              "--train-gemma": train_gemma_check}.get(
+                  " ".join(sys.argv[1:]), main)())

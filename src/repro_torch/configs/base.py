@@ -1,8 +1,11 @@
 """Model/config schema shared by every assigned architecture.
 
-Counterpart of `repro.configs.base` with torch dtypes.  The JAX package's
-dry-run helpers (`input_specs`, `SHAPES`) and its scan and sharding knobs
-are not carried over: the port runs eagerly on one card.
+Counterpart of `repro.configs.base` with torch dtypes, the assigned input
+shapes (`SHAPES`, `cell_is_runnable`) and `input_specs`, whose stand-ins
+are tensors on the ``meta`` device.  The JAX package's scan and sharding
+knobs (`scan_unroll`, `attn_shard`, `residual_shard`, `sp_style`) are not
+carried over: the port runs eagerly on one card (ROADMAP.md queue A,
+item 17).
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ class ModelConfig:
     attn_block_k: int = 1024
     gqa_broadcast: bool = False      # einsum-broadcast GQA (no kv repeat)
     attn_acc_dtype: Any = torch.float32  # blockwise attention math dtype
+    # recompute each repeated unit in the backward pass (training only;
+    # `torch.utils.checkpoint`, as JAX's `nothing_saveable` remat)
+    remat: bool = True
     # hybrid (griffin) recurrence width
     lru_width: int | None = None
     conv1d_width: int = 4
@@ -142,6 +148,7 @@ class ModelConfig:
             rwkv_head_size=16,
             rwkv_decay_lora=8,
             attn_block_k=32,
+            remat=False,
             act_dtype=torch.float32,
         )
         if kw["n_kv_heads"] > kw["n_heads"]:
@@ -155,3 +162,49 @@ class ModelConfig:
             kw["mrope_sections"] = (t, h, half - t - h)
         kw.update(over)
         return dataclasses.replace(self, **kw)
+
+
+# ----------------------------------------------------------------------
+# Assigned input shapes (identical set for every LM arch)
+# ----------------------------------------------------------------------
+
+SHAPES = {
+    "train_4k":    dict(seq_len=4_096, global_batch=256, step="train"),
+    "prefill_32k": dict(seq_len=32_768, global_batch=32, step="prefill"),
+    "decode_32k":  dict(seq_len=32_768, global_batch=128, step="decode"),
+    "long_500k":   dict(seq_len=524_288, global_batch=1, step="decode"),
+}
+
+# archs allowed to run long_500k (sub-quadratic sequence mixing)
+SUBQUADRATIC = {"rwkv6-1.6b", "recurrentgemma-2b", "gemma3-1b"}
+
+
+def cell_is_runnable(arch_name: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return arch_name in SUBQUADRATIC
+    return True
+
+
+def input_specs(cfg: ModelConfig, shape_name: str):
+    """Stand-ins for every model input of the cell: tensors on the
+    ``meta`` device (shape and dtype, no storage), where the JAX package
+    returns ``ShapeDtypeStruct``s of the same names, shapes and dtypes.
+    Returns (step_kind, {name: tensor})."""
+    sh = SHAPES[shape_name]
+    B, S, step = sh["global_batch"], sh["seq_len"], sh["step"]
+    T = S if step in ("train", "prefill") else 1
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    specs = {}
+    if cfg.embed_inputs:
+        specs["tokens"] = spec((B, T), torch.int32)
+    else:  # frontend stub: precomputed frame/patch embeddings
+        specs["embeds"] = spec((B, T, cfg.d_model), cfg.act_dtype)
+    if cfg.mrope_sections is not None:
+        specs["positions"] = spec((3, B, T), torch.int32)
+    if step == "train":
+        specs["labels"] = spec((B, T), torch.int32)
+        specs["mask"] = spec((B, T), torch.float32)
+    return step, specs

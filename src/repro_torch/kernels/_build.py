@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {name: CSRC / f"{name}.cu"
@@ -33,6 +35,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad.
+
+    Every kernel wrapper calls this first, on every device: a kernel writes
+    a ``torch.empty`` output through ctypes, which carries no ``grad_fn``,
+    so a loss through it would train nothing upstream and raise nothing.
+    Training reaches the plain versions by choosing them (``impl=``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            f"inputs that do not require grad, or pick a plain version "
+            f"(impl='blockwise') to differentiate")
 
 
 def nvcc_path() -> str:

@@ -143,7 +143,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
 
     A CUDA tensor launches the kernel (and adds one to
     ``flash_attention_cuda.launches``) or raises; a CPU tensor runs the
-    plain `ref_attention`."""
+    plain `ref_attention`.  Grad guard: with grad mode on, an input that
+    requires grad raises on every device (`_build.refuse_grad`), since the
+    kernel's output has no backward."""
+    _build.refuse_grad("flash_attention_cuda", q, k, v)
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:

@@ -460,7 +460,10 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
 
     A CUDA tensor launches the kernel (and adds one to
     ``log_conv2d_fused.launches``) or raises; a CPU tensor runs the plain
-    `log_conv2d_blockwise`."""
+    `log_conv2d_blockwise`.  Grad guard: with grad mode on, an input that
+    requires grad raises on every device (`_build.refuse_grad`), since the
+    kernel's output has no backward."""
+    _build.refuse_grad("log_conv2d_fused", x, scale)
     if x.ndim != 4 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"log_conv2d_fused takes contiguous fp32 NHWC "
                          f"activations, got {x.dtype} {tuple(x.shape)} "

@@ -77,7 +77,10 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
 
     A CUDA tensor launches the kernel (and adds one to
     ``log_matmul_cuda.launches``) or raises; a CPU tensor runs the plain
-    `ref_log_matmul`."""
+    `ref_log_matmul`.  Grad guard: with grad mode on, an input that
+    requires grad raises on every device (`_build.refuse_grad`), since the
+    kernel's output has no backward."""
+    _build.refuse_grad("log_matmul_cuda", x, scale)
     if x.ndim != 2 or packed.ndim != 2 or x.shape[1] != packed.shape[0]:
         raise ValueError(f"log_matmul_cuda takes x [M, K] and codes [K, N], "
                          f"got {tuple(x.shape)} and {tuple(packed.shape)}")

@@ -157,7 +157,10 @@ def wkv6_cuda(r, k, v, logw, u, state=None):
 
     A CUDA tensor launches the kernel (and adds one to
     ``wkv6_cuda.launches``) or raises; a CPU tensor runs the plain
-    `ref_wkv6`."""
+    `ref_wkv6`.  Grad guard: with grad mode on, an input that requires
+    grad raises on every device (`_build.refuse_grad`), since the kernel's
+    output has no backward."""
+    _build.refuse_grad("wkv6_cuda", r, k, v, logw, u, state)
     B, T, H, K = r.shape
     V = v.shape[-1]
     if k.shape != r.shape or logw.shape != r.shape \

@@ -9,8 +9,12 @@ gated MLP.
 
 The eight projections go through `layers.dense`, so packed leaves reach
 `ops.log_matmul`; the decay's low-rank product stays a plain fp32 matmul,
-as in the JAX package.  The WKV call resolves ``impl="auto"``: the CUDA
-kernel on the card, the chunked plain version (JAX's, with its chunk rule)
+as in the JAX package.  The WKV call follows the config's sequence-mixer
+dispatch, ``cfg.attn_impl``: "blockwise" (JAX's default, which the trainer
+sets, and which the JAX package pins for the WKV) runs the chunked plain
+`wkv6_chunked` with JAX's chunk rule, which autograd differentiates; any
+other value resolves ``impl="auto"``, the CUDA kernel on the card (which
+has no backward and refuses inputs that require grad) and `wkv6_chunked`
 on the CPU.
 
 State per layer: ``x_prev_t`` and ``x_prev_c`` [B, D] fp32 and ``wkv``
@@ -108,7 +112,8 @@ def rwkv_time_mix(p, x, cfg, state=None):
 
     o, new_wkv = ops.wkv6(r, k, v, logw, p["u"],
                           state=None if state is None else state["wkv"],
-                          chunk=min(64, max(16, T)))
+                          impl="blockwise" if cfg.attn_impl == "blockwise"
+                          else "auto", chunk=min(64, max(16, T)))
 
     # per-head group norm (population variance, as jnp.var)
     o32 = o.to(torch.float32).reshape(B, T, H, hs)

@@ -118,7 +118,6 @@ class ServeEngine:
         if not cfg.embed_inputs:
             raise ValueError("engine serves token archs; frontend-stub archs "
                              "(musicgen) feed embeddings")
-        transformer.check_supported(cfg)
         if ecfg.telemetry not in ("auto", "on", "off"):
             raise ValueError(f"telemetry must be auto|on|off, got "
                              f"{ecfg.telemetry!r}")
@@ -198,6 +197,7 @@ class ServeEngine:
     def _free_slots(self):
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
+    @torch.no_grad()
     def _prefill(self, slot: int, prompt) -> torch.Tensor:
         """Zero the slot's cache, run the prompt (bucket-padded unless the
         arch is recurrent) through it → the logits [V] of the last real
@@ -276,6 +276,7 @@ class ServeEngine:
                     obs_trace.instant("retire", uid=req.uid,
                                       tokens=len(req.output))
 
+    @torch.no_grad()
     def _decode(self) -> torch.Tensor:
         """All slots, one token each, each at its own position → logits
         [max_batch, V].  Idle slots run too, as in the JAX engine; their

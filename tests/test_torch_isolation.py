@@ -38,6 +38,15 @@ def test_port_sources_import_neither_jax_nor_repro():
     benches = {p.name for p in PORT_FILES if p.parent.name == "benchmarks"}
     assert {"common.py", "conv_kernels.py", "attention_kernels.py",
             "telemetry_overhead.py", "run.py"} <= benches
+    by_dir = {d: {p.name for p in PORT_FILES if p.parent.name == d}
+              for d in ("data", "training", "runtime", "launch", "examples")}
+    assert "pipeline.py" in by_dir["data"]
+    assert {"optimizer.py", "grad_compress.py", "train_loop.py"} <= \
+        by_dir["training"]
+    assert {"checkpoint.py", "monitor.py"} <= by_dir["runtime"]
+    assert "train.py" in by_dir["launch"]
+    assert {"quickstart.py", "serve_lm.py", "train_lm.py"} <= \
+        by_dir["examples"]
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -73,13 +82,20 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from repro_torch.core.logmath import LogPEThread
     from repro_torch.core.pe_grid import PEGrid
     from repro_torch.examples import cnn_accelerator_sim as ex
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+    from repro_torch.launch import train
+    from repro_torch.training.train_loop import train_state_from_numpy
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tcnn.make_cnn("vgg16", 0, n_classes=10,
                                        width_mult=0.125),
                  lambda: tcnn.params_from_numpy({"w": [1.0]}),
                  lambda: PEGrid(mode="log"), lambda: LogPEThread(),
                  lambda: ex.train_quantized_cnn(steps=1),
-                 lambda: ex.main([])):
+                 lambda: ex.main([]),
+                 lambda: train.main(["--reduced", "--steps", "1"]),
+                 lambda: train_state_from_numpy({"step": 0}),
+                 lambda: quickstart.main([]), lambda: serve_lm.main([]),
+                 lambda: train_lm.main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     params, _ = tcnn.make_cnn("vgg16", 0, n_classes=10, width_mult=0.125,
@@ -87,6 +103,29 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert params["head"]["w"].device.type == "cpu"
     grid = PEGrid(mode="log", device="cpu")
     assert grid.device.type == grid.thread.lut.device.type == "cpu"
+
+
+def test_check_supported_is_gone_and_the_engine_refuses_embedding_archs():
+    """Every arch builds and runs a forward now (ROADMAP.md queue A, item
+    14 closed); the serving engine still refuses the archs fed with
+    embeddings, as the JAX engine does."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServeEngine
+    assert not hasattr(transformer, "check_supported")
+    for arch in ("musicgen-large", "qwen2-vl-2b"):
+        cfg = get_config(arch).reduced()
+        params = transformer.init_params(cfg, 0, device="cpu")
+        cache = transformer.init_cache(cfg, 1, 8, device="cpu")
+        assert cache["index"] == 0
+        with pytest.raises(ValueError, match="engine serves token archs"):
+            ServeEngine(cfg, params)
+
+
+def test_launch_train_refuses_production_naming_the_roadmap():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="queue A, item 17"):
+        train.main(["--production", "--reduced", "--device", "cpu"])
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):

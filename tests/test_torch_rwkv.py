@@ -69,14 +69,20 @@ def _tokens(seed, shape):
 
 
 def test_rwkv_is_served_and_the_rest_of_item_13_is_refused():
-    """rwkv6-1.6b passes `check_supported`, as do the Griffin and MoE archs
-    that closed item 13; embedding inputs (item 14) still raise, naming
-    the roadmap."""
+    """`check_supported` is gone: every arch builds, the embedding-input
+    ones (item 14) included, and the serving engine refuses those, as the
+    JAX engine does; rwkv6-1.6b and the Griffin and MoE archs that closed
+    item 13 are served."""
+    from repro_torch.serving.engine import ServeEngine
+    assert not hasattr(tt, "check_supported")
     for arch in (ARCH, "recurrentgemma-2b", "granite-moe-1b-a400m"):
-        tt.check_supported(tget(arch))
+        cfg = tget(arch).reduced(n_layers=len(tget(arch).layer_pattern))
+        ServeEngine(cfg, tt.init_params(cfg, 0, device="cpu"))
     for arch in ("musicgen-large", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-            tt.check_supported(tget(arch))
+        cfg = tget(arch).reduced()
+        params = tt.init_params(cfg, 0, device="cpu")
+        with pytest.raises(ValueError, match="engine serves token archs"):
+            ServeEngine(cfg, params)
 
 
 def test_init_params_tree_matches_jax():

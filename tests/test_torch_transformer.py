@@ -335,6 +335,14 @@ def test_recurrentgemma_ring_prefill_longer_than_the_window():
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
 def test_unported_archs_raise_naming_the_roadmap(arch):
+    """The embedding-input archs (ROADMAP.md queue A, item 14) are ported
+    now: they build and run a forward on [B, T, D] embeddings, and only
+    the serving engine refuses them, as the JAX engine does."""
+    from repro_torch.serving.engine import ServeEngine
     cfg = tget(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        tt.init_params(cfg, 0, device="cpu")
+    params = tt.init_params(cfg, 0, device="cpu")
+    embeds = torch.from_numpy(_x(7, 2, 5, cfg.d_model))
+    h, _, _ = tt.forward(params, embeds, cfg)
+    assert h.shape == (2, 5, cfg.d_model) and torch.isfinite(h).all()
+    with pytest.raises(ValueError, match="engine serves token archs"):
+        ServeEngine(cfg, params)
