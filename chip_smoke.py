@@ -32,8 +32,9 @@ goes wrong:
      match ``"blockwise"`` on the same input, and the logits must match the
      ``"blockwise"`` forward's.  Each net's forward is timed and profiled
      (device busy time, idle share, top kernels);
-  6. per-conv times at batch 8 over the 61 distinct shapes: the kernel and
-     the library call (`F.conv2d` on weights decoded in advance, the same
+  6. per-conv times at batch 8 over the 61 distinct shapes: the kernel (at
+     the packaged autotune tier's knobs, which the main path launches;
+     where they differ, also at the heuristic's) and the library call (`F.conv2d` on weights decoded in advance, the same
      yardstick as the LM kernels', layout copies included) as device time,
      the sum of a call's kernels in a `torch.profiler` window, with the
      CUDA-event mean of a loop of calls beside each; the plain version (im2col
@@ -122,7 +123,9 @@ goes wrong:
      the bound, summed over one decode step's 24 calls,
      over a 15-token prefill's 24 calls, and for one T=2048 call (where a
      profiler window missed at most 2 % of the kernels, as in 10, their
-     mean stands in for the missing ones).  No single
+     mean stands in for the missing ones), in a process of its own
+     (``chip_smoke.py --wkv6-times``, on the layers' u and states saved to
+     a file), whose profiler windows start fresh.  No single
      PyTorch call computes the recurrence, so there is no library time.
      Then log_matmul over rwkv6-1.6b's 192 products at M = 4 and 16, read
      as in 10;
@@ -188,9 +191,12 @@ goes wrong:
      `attention_traffic_bytes`, the log_matmul and wkv6 formulas) computed
      from each call's tensors; its decode step with the profiler off and
      on.  Then one batch-8 forward of each net under the profiler (calls
-     = launches 13/27/36/26, as above); every conv shape of the zoo in a
-     back-to-back loop of 20 calls, a record's steady µs against phase 6's
-     `torch.profiler` device time a call of the shape, held within
+     = launches 13/27/36/26, as above, the bytes the models' at the knobs
+     each call launched); every conv shape of the zoo in a host-paced loop
+     of 20 calls after a first one, in a process of its own
+     (``chip_smoke.py --profiled-loops``, whose profiler windows start
+     fresh), a record's steady µs against the `torch.profiler` device time
+     of the same call taken right before the loop, held within
      [0.9, 1.25] x + 10 µs for VGG-16's 13 shapes and printed for the
      rest; `ops.wkv6` at rwkv6-1.6b's decode shape; the top ten records by
      total time;
@@ -227,15 +233,35 @@ goes wrong:
      (300 steps of the ~115M logq6 model with compressed gradients; its
      assertion that the loss falls by more than 1.0), `serve_lm` (its spot
      check against naive decode; the attention kernel must launch) and
-     `quickstart` (step 5 launches B2 once).
+     `quickstart` (step 5 launches B2 once);
+ 22. the autotune tables (`repro_torch.kernels.autotune`), in a process
+     of its own (``chip_smoke.py --autotune``) and an empty user tier of
+     its own: (a) the cold-start gate: one batch-8
+     forward of each net and gemma-2b's serve run resolve every conv and
+     attention dispatch from the packaged tier (no miss, no sweep,
+     hit_warm = the lookups = the distinct keys; knobs are resolved once a
+     shape), with B1 launched 13/27/36/26 times; (b) every packaged conv
+     config at batch 8 run twice for the same bits and held against
+     `log_conv2d_blockwise` within 1e-4 * (max|y_ref| + 1), every packaged
+     attention config held as in 8; (c) `build_autotune_table`'s ``--measure`` sweep
+     over ResNet-34's three 1x1 stride-2 convs, MobileNet v1's 56² and 28²
+     stride-1 depthwise convs and gemma-2b's decode attention (each
+     candidate held against the plain version first), with the device µs
+     of the heuristic's, the packaged and the winning knobs and of the
+     library call; the split tickets read zero after each; (d) each net's
+     forward ms and busy ms with the packaged tier and with it emptied,
+     printed.
 
-Phases 5, 9, 12, 14, 15, 16 and 17 drive the main paths: the kernels'
-launch counts are set to 0 just before each and read just after.
+Phases 5, 9, 12, 14, 15, 16, 17 and 22(a) drive the main paths: the
+kernels' launch counts are set to 0 just before each and read just after.
+The autotune user tier is an empty file of the run's own, so every main
+path launches the packaged tier's knobs.
 
 The build log must show the log_conv2d and log_matmul kernels at no more
 than 128 registers a thread, the attention and wkv6 kernels at no more
-than 255, and no spill.  A `torch.profiler` window that lost kernel events is taken
-again after half a second, up to five windows in all; then the run fails.
+than 255, and no spill.  A `torch.profiler` window that lost kernel events
+is taken again after a wait that doubles from half a second (0.5, 1, 2,
+4 s), up to five windows in all; then the run fails.
 Each retake is printed and listed in the details.  Details go to
 `chiprun_out/chip_smoke.json`.  The last three lines are the
 kernel table as JSON, the card's name and power limit, and
@@ -262,7 +288,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks from NVIDIA's data sheet: fp32 on the CUDA cores, dense
 # bf16 on the tensor cores, HBM3
 from repro_torch.benchmarks.common import (  # noqa: E402
-    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES)
+    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES, retake_wait)
 
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
@@ -483,8 +509,7 @@ def depthwise_load(fn, what: str) -> str:
     the template argument in its name (``..._kernel<K, S, ASYNC>``):
     ``cp.async`` or ``gather``."""
     for attempt in range(WINDOWS):
-        if attempt:
-            time.sleep(0.5)
+        retake_wait(attempt)
         names = [n for n, _ in device_kernels(fn, opener=True)
                  if "log_conv2d_depthwise_kernel" in n]
         if len(names) == 1:
@@ -741,12 +766,12 @@ def complete_window(fn, what: str, reps: int, keep,
     same kernels).
     The profiler on the card's machine now and then loses every event of
     the windows of a short span; so a window that lost events is taken
-    again after half a second, up to ``WINDOWS`` windows, and then the run
-    fails.  Each retake is recorded in ``RETAKEN``."""
+    again after a wait that doubles from half a second (`retake_wait`),
+    up to ``WINDOWS`` windows, and then the run fails.  Each retake is
+    recorded in ``RETAKEN``."""
     seen = []
     for attempt in range(WINDOWS):
-        if attempt:
-            time.sleep(0.5)
+        retake_wait(attempt)
         kern = [ms for name, ms in device_kernels(fn, reps, opener=True)
                 if keep(name)]
         if kern and (min_share * expect * reps <= len(kern) <= expect * reps
@@ -794,9 +819,28 @@ def _cold_device_ms(fn, what: str, flush_buf, expect: int,
     return sum(kern) / reps
 
 
+def _conv_key(r: dict) -> str:
+    from repro_torch.kernels.autotune import conv_key
+    return conv_key(*(r[k] for k in ("B", "H", "W", "C", "K", "Cout")),
+                    stride=r["stride"], padding=r["padding"],
+                    groups=r["groups"])
+
+
+def packaged_conv_knobs(r: dict) -> dict:
+    """The launch knobs of the packaged autotune tier for one conv record
+    (the knobs the main path launches it with; the heuristic's where the
+    tier has no entry)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.log_conv2d import knob_args
+    return knob_args(autotune._load_packaged("cuda").get(_conv_key(r), {})
+                     .get("config"))
+
+
 def phase_conv_times(dev) -> tuple[dict, list]:
     """Per-conv times at batch 8 over the 61 distinct conv shapes of the
-    four nets.  Kernel and library (`F.conv2d` on weights decoded in
+    four nets, at the packaged tier's knobs (the main path's; where they
+    differ from the heuristic's, the heuristic's device time beside).
+    Kernel and library (`F.conv2d` on weights decoded in
     advance, layout copies included) are read as device time, the sum of
     the kernels of a call in a `torch.profiler` window; the CUDA-event mean
     of a loop of calls stands beside them.  Bound: max(bytes / 3.35 TB/s,
@@ -827,8 +871,11 @@ def phase_conv_times(dev) -> tuple[dict, list]:
                                      r["H"], r["W"])
             w = decode_codes(hwio) * qt.scale.reshape(-1)
 
-            def kernel():
-                return log_conv2d_fused(x, codes, qt.scale, lane=lane, **kw)
+            knobs = packaged_conv_knobs(r)
+
+            def kernel(knobs=knobs):
+                return log_conv2d_fused(x, codes, qt.scale, lane=lane,
+                                        config=knobs, **kw)
 
             def library():
                 return conv_nhwc(x, w, stride=r["stride"], pads=pads,
@@ -837,8 +884,15 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             lib_ms, n_lib = _device_ms(library, f"library {sig(r)}")
             geo = log_conv2d_geometry(*(r[k] for k in (
                 "B", "H", "W", "C", "K", "Cout", "stride", "padding",
+                "groups")), n_sm=n_sm, **knobs)
+            heur = log_conv2d_geometry(*(r[k] for k in (
+                "B", "H", "W", "C", "K", "Cout", "stride", "padding",
                 "groups")), n_sm=n_sm)
+            # where the table departs from the heuristic, its time too
+            heur_ms = ms if heur == geo else _device_ms(
+                lambda: kernel(None), f"kernel heuristic {sig(r)}")[0]
             t = {"ms": ms, "kernels_per_call": n_kern,
+                 "knobs": knobs, "heuristic_ms": heur_ms,
                  "time": "device time by torch.profiler",
                  "event_ms": time_ms(kernel, 5),
                  "library_ms": lib_ms, "library_kernels_per_call": n_lib,
@@ -870,6 +924,9 @@ def phase_conv_times(dev) -> tuple[dict, list]:
                        f"{t['cold_ms']:.4f}, library "
                        f"{t['cold_library_ms']:.4f}")
             times[sig(r)] = t
+            if heur != geo:
+                msg += (f"; heuristic {heur['splits']} shares / tile "
+                        f"{heur.get('tile')}: {heur_ms:.4f} ms")
             print(f"conv {'/'.join(sig(r))} ({','.join(r['nets'])}): kernel "
                   f"{ms:.4f} ms device ({t['tflops']:.1f} TFLOP/s, "
                   f"{geo['blocks']} blocks, {geo['splits']} shares; events "
@@ -886,9 +943,10 @@ def phase_conv_times(dev) -> tuple[dict, list]:
         recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
                                  n_classes=N_CLASSES)
         tot = {k: sum(times[sig(r)][k] for r in recs)
-               for k in ("ms", "event_ms", "library_ms", "library_event_ms",
-                         "plain_ms", "decode_conv_ms", "bound_ms",
-                         "fp32_bound_ms", "bytes_ms", "ops_ms", "gflop")}
+               for k in ("ms", "heuristic_ms", "event_ms", "library_ms",
+                         "library_event_ms", "plain_ms", "decode_conv_ms",
+                         "bound_ms", "fp32_bound_ms", "bytes_ms", "ops_ms",
+                         "gflop")}
         tot["net"], tot["convs"] = name, len(recs)
         tot["dense_ms"] = sum(times[sig(r)]["ms"] for r in recs
                               if times[sig(r)]["path"] == "dense")
@@ -903,7 +961,8 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             tot[f"depthwise_{k}"] = sum(t[k] for t in dw)
         nets.append(tot)
         print(f"convs {name:12s} x{len(recs)} at batch {BATCH}: kernel "
-              f"{tot['ms']:.3f} ms device (events {tot['event_ms']:.3f}; "
+              f"{tot['ms']:.3f} ms device (heuristic's knobs "
+              f"{tot['heuristic_ms']:.3f}; events {tot['event_ms']:.3f}; "
               f"dense convs {tot['dense_ms']:.3f}), library "
               f"{tot['library_ms']:.3f} ms device (events "
               f"{tot['library_event_ms']:.3f}; dense convs "
@@ -1701,6 +1760,7 @@ def phase_lm_times(dev, engine) -> dict:
     CUDA-event time of the loop of calls beside each.  The bound takes the peak of the unit each variant
     runs on: fp32 for split-KV, bf16 tensor cores for the mma variant."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (attention_traffic_bytes,
                                                      flash_attention_cuda,
                                                      flash_attention_geometry)
@@ -1712,10 +1772,11 @@ def phase_lm_times(dev, engine) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     out = {}
 
-    def measure(name, calls, kern, plain, lib, q, k, mask, plain_reps):
+    def measure(name, calls, kern, plain, lib, q, k, mask, plain_reps,
+                knobs):
         geo = flash_attention_geometry(q.shape[0], q.shape[1], k.shape[1],
                                        q.shape[2], k.shape[2], q.shape[3],
-                                       q.dtype, k.dtype, n_sm)
+                                       q.dtype, k.dtype, n_sm, **knobs)
         peak = PEAK_BF16_FLOPS if geo["variant"] == "mma" else PEAK_FP32_FLOPS
         ms, _ = _device_ms(kern, f"{name} kernel", reps=3, match="attn_",
                            expect=calls)
@@ -1732,7 +1793,8 @@ def phase_lm_times(dev, engine) -> dict:
              "peak_tflops": peak / 1e12, "gflop": flops / 1e9,
              "kernel_traffic_bytes": calls * attention_traffic_bytes(
                  "cuda", q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                 k.shape[2], q.shape[3], itemsize=k.element_size())["total"]}
+                 k.shape[2], q.shape[3], itemsize=k.element_size(),
+                 config=knobs)["total"]}
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] \
             else "bytes"
@@ -1761,14 +1823,17 @@ def phase_lm_times(dev, engine) -> dict:
               for c in caches]
     qf = q.float().transpose(1, 2)
     kw = dict(causal=True, q_offset=offs)
+    # the knobs the engine's decode launches with (the packaged tier's)
+    knobs = ops.attention_knobs(q, caches[0]["k"], caches[0]["v"],
+                                causal=True)
     measure(
         "attention decode", cfg.n_layers,
-        lambda: [flash_attention_cuda(q, c["k"], c["v"], **kw)
+        lambda: [flash_attention_cuda(q, c["k"], c["v"], **kw, config=knobs)
                  for c in caches],
         lambda: [ref_attention(q, c["k"], c["v"], **kw) for c in caches],
         lambda: [F.scaled_dot_product_attention(
             qf, k, v, attn_mask=mask[:, None]) for k, v in lib_kv],
-        q, caches[0]["k"], mask, 5)
+        q, caches[0]["k"], mask, 5, knobs)
 
     # attention at the long shapes of phase 8, one call each
     for (b, tq, tk), dt in (((4, 1, 8192), torch.float32),
@@ -1789,7 +1854,7 @@ def phase_lm_times(dev, engine) -> dict:
                 lambda: ref_attention(qq, kk, vv, causal=True, q_offset=off),
                 lambda: F.scaled_dot_product_attention(
                     ql, kl, vl, attn_mask=m[:, None]),
-                qq, kk, m, 2)
+                qq, kk, m, 2, {"splits": None})
     return out
 
 
@@ -1919,27 +1984,61 @@ def phase_wkv6_times(dev, engine) -> dict:
     """Kernel, plain (`ref_wkv6`, `wkv6_chunked`) and bound for the wkv6
     calls of the RWKV slice: the 24 calls of one decode step (4 slots,
     bf16 r/k/v, fp32 logw, each layer's own u and state from the engine's
-    cache), the 24 calls of a 15-token prefill and one T = 2048 call."""
+    cache), the 24 calls of a 15-token prefill and one T = 2048 call.
+
+    The timing runs in a process of its own (``chip_smoke.py
+    --wkv6-times``, `wkv6_times_check`) on the layers' u and states saved
+    to a file: late in a long process the `torch.profiler` windows lose
+    kernel events (phase 19 runs apart for the same reason)."""
+    import os
+    import tempfile
+    from repro_torch.models.transformer import _rep
+    cfg, params = engine.cfg, engine.params
+    layers = [(_rep(params["segments"]["seg0"], r)["l0"]["rwkv"]["u"].cpu(),
+               _rep(engine.cache["segments"]["seg0"], r)["l0"]["wkv"].cpu())
+              for r in range(cfg.n_layers)]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-wkv6-") as tmp:
+        path = os.path.join(tmp, "layers.pt")
+        torch.save({"layers": layers, "d_model": cfg.d_model,
+                    "head_size": cfg.rwkv_head_size,
+                    "act_dtype": str(cfg.act_dtype).removeprefix("torch."),
+                    "max_batch": engine.ecfg.max_batch}, path)
+        out = _subprocess("--wkv6-times", CHIP_SMOKE_WKV6_LAYERS=path)
+    RETAKEN.extend(out.pop("profiler_windows_retaken"))
+    return out
+
+
+def wkv6_times_check() -> int:
+    """``chip_smoke.py --wkv6-times``: phase 13's wkv6 timing in a fresh
+    process, on the layers saved by `phase_wkv6_times`; prints its result
+    as the last line, ``{"wkv6_times": {...}}``."""
+    import os
+    dev = torch.device("cuda", 0)
+    saved = torch.load(os.environ["CHIP_SMOKE_WKV6_LAYERS"],
+                       map_location=dev)
+    out = _wkv6_times(dev, saved["layers"], saved["d_model"],
+                      saved["head_size"],
+                      getattr(torch, saved["act_dtype"]), saved["max_batch"])
+    out["profiler_windows_retaken"] = RETAKEN
+    print(json.dumps({"wkv6_times": out}, default=str))
+    return 0
+
+
+def _wkv6_times(dev, layers, d_model, hs, act_dtype, max_batch) -> dict:
     from repro_torch.kernels.ref import ref_wkv6
     from repro_torch.kernels.wkv6 import (wkv6_chunked, wkv6_cuda,
                                           wkv6_geometry, wkv6_work)
-    from repro_torch.models.transformer import _rep
-    cfg, params = engine.cfg, engine.params
-    H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    H = d_model // hs
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    layers = [(_rep(params["segments"]["seg0"], r)["l0"]["rwkv"]["u"],
-               _rep(engine.cache["segments"]["seg0"], r)["l0"]["wkv"])
-              for r in range(cfg.n_layers)]
     out = {}
-    for label, (b, t), reps in (("decode step", (engine.ecfg.max_batch, 1),
-                                 10),
+    for label, (b, t), reps in (("decode step", (max_batch, 1), 10),
                                 ("prefill T=15", (1, 15), 5),
                                 ("T=2048", (1, 2048), 3)):
         calls = layers if t < 2048 else layers[:1]
         ins = []
         for u, s in calls:  # the engine passes a state at prefill too
             r, k, v, lw, _, _ = _wkv_inputs(gen, dev, b, t, H, hs, hs,
-                                            cfg.act_dtype, state=False)
+                                            act_dtype, state=False)
             ins.append((r, k, v, lw, u, s[:b]))
         chunk = min(64, max(16, t))
 
@@ -1979,7 +2078,7 @@ def phase_wkv6_times(dev, engine) -> dict:
                   tile=geo["tile"])
         out[f"wkv6 {label}"] = tt
         print(f"wkv6 x{len(ins)} ({label}, B={b}, T={t}, H={H}, K=V={hs}, "
-              f"{cfg.act_dtype} r/k/v; {geo['variant']}, {geo['blocks']} "
+              f"{act_dtype} r/k/v; {geo['variant']}, {geo['blocks']} "
               f"blocks of {geo['tile']} columns): kernel {tt['ms']:.4f} ms "
               f"device (events {tt['event_ms']:.4f}), plain "
               f"{tt['plain_ms']:.4f} ms (chunked {tt['chunked_plain_ms']:.4f}"
@@ -2235,13 +2334,13 @@ PROFILED_REPS = 20   # steady calls of a loop under the kernel profiler
 def _spy_ops(expected: dict, names) -> dict:
     """Stand-ins for the `ops` entries ``names`` that note, for each call,
     the key and the bytes the profiler must record for it, computed from
-    the call's own tensors (``expected[key]``: the bytes of each call with
-    that key, in order), then run the op."""
+    the call's own tensors at the launch knobs the call resolves
+    (`ops.conv_knobs`, `ops.attention_knobs`; ``expected[key]``: the bytes
+    of each call with that key, in order), then run the op."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (attention_key,
-                                                     attention_traffic_bytes)
-    from repro_torch.kernels.log_conv2d import (conv_key, conv_traffic_bytes,
-                                                sm_count)
+    from repro_torch.kernels.autotune import attention_key, conv_key
+    from repro_torch.kernels.flash_attention import attention_traffic_bytes
+    from repro_torch.kernels.log_conv2d import conv_traffic_bytes, sm_count
     orig = {n: getattr(ops, n) for n in names}
 
     def note(key, nbytes):
@@ -2250,12 +2349,15 @@ def _spy_ops(expected: dict, names) -> dict:
     def conv2d(x, qt, *, stride=1, padding="SAME", groups=1, **kw):
         B, H, W, C = x.shape
         K, Cout = qt.shape[0], qt.shape[-1]
+        knobs = ops.conv_knobs(x, qt, stride=stride, padding=padding,
+                               groups=groups, config=kw.get("config"))
         note(conv_key(B, H, W, C, K, Cout, stride=stride, padding=padding,
                       groups=groups, cfg=qt.cfg),
              conv_traffic_bytes("cuda", B, H, W, C, K, Cout, stride=stride,
                                 padding=padding, groups=groups,
                                 bits=qt.cfg.bits,
-                                n_sm=sm_count(x.device.index)))
+                                n_sm=sm_count(x.device.index),
+                                config=knobs))
         return orig["conv2d"](x, qt, stride=stride, padding=padding,
                               groups=groups, **kw)
 
@@ -2270,11 +2372,14 @@ def _spy_ops(expected: dict, names) -> dict:
     def attention(q, k, v, *, causal=True, window=None, **kw):
         B, Tq, H, D = q.shape
         Tk, Hkv = k.shape[1], k.shape[2]
+        knobs = ops.attention_knobs(q, k, v, causal=causal, window=window,
+                                    config=kw.get("config"))
         note(attention_key(B, Tq, Tk, H, Hkv, D, causal=causal,
                            window=window),
              attention_traffic_bytes("cuda", B, Tq, Tk, H, Hkv, D,
                                      itemsize=q.element_size(),
-                                     kv_itemsize=k.element_size()))
+                                     kv_itemsize=k.element_size(),
+                                     config=knobs))
         return orig["attention"](q, k, v, causal=causal, window=window, **kw)
 
     def wkv6(r, k, v, logw, u, state=None, **kw):
@@ -2391,25 +2496,22 @@ def phase_profiler_lm(dev, engine) -> dict:
     return res
 
 
-def phase_profiler(dev, lm_prof: dict, conv_times: dict) -> dict:
+def phase_profiler(dev, lm_prof: dict) -> dict:
     """18: the kernel-dispatch profiler on the card.  (a) one batch-8
     forward of each net with the profiler on: the B1 records' calls equal
     the kernel's launches, impl and backend ``cuda``, bytes equal
     `conv_traffic_bytes("cuda")`; (b) every conv shape of the zoo in a
-    back-to-back loop of ``PROFILED_REPS`` calls after a first one: a
-    record's steady µs against the `torch.profiler` device time a call of
-    the same shape's calls in phase 6 (``conv_times``; late in a run the
-    profiler's windows lost kernel events, every one at last), held
-    within [0.9, 1.25] x + 10 µs for VGG-16's 13 shapes and printed for the
-    others, whose kernels may take less time than the host's call, so that
-    the events hold host time as well; (d) `ops.wkv6` at
+    host-paced loop, its record against a `torch.profiler` device time of
+    the same call taken right before the loop (`_profiled_loops`, in a
+    process of its own, ``chip_smoke.py --profiled-loops``, whose profiler
+    windows start fresh: phase 6's reading, minutes earlier, once put
+    CONV1_1 at 1.601x); (d) `ops.wkv6` at
     rwkv6-1.6b's decode shape; (e) the top ten records by total time of
     (a), (c) (`phase_profiler_lm`) and (d)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.log_conv2d import log_conv2d_fused
     from repro_torch.kernels.wkv6 import wkv6_cuda
-    from repro_torch.models.cnn import (CNNS, make_cnn, trace_conv_shapes,
-                                        zoo_conv_shapes)
+    from repro_torch.models.cnn import CNNS, make_cnn
     from repro_torch.obs import kernel_profile as kprof
     from repro_torch.serving.quantize import quantize_cnn_params
 
@@ -2449,40 +2551,10 @@ def phase_profiler(dev, lm_prof: dict, conv_times: dict) -> dict:
         del params, net
         torch.cuda.empty_cache()
 
-    # (b): the record's steady time against the device time of its loop
-    vgg = {sig(r) for r in trace_conv_shapes("vgg16", batch=BATCH, img=IMG,
-                                             n_classes=N_CLASSES)}
-    rng = np.random.default_rng(SEED + 7)
-    res["loops"], bad = {}, []
-    with torch.no_grad():
-        for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
-            xs, qt, *_ = make_conv(r, rng, dev)
-            kw = {k: r[k] for k in ("stride", "padding", "groups")}
-
-            def loop():
-                # outputs are dropped, so the allocator reuses one block:
-                # kept ones would make each call allocate within its events
-                for _ in range(PROFILED_REPS + 1):
-                    ops.conv2d(xs, qt, impl="cuda", **kw)
-            (rec,) = profiled(loop)
-            dev_us = conv_times[sig(r)]["ms"] * 1e3
-            held = sig(r) in vgg
-            ok = 0.9 * dev_us <= rec["steady_us"] <= 1.25 * dev_us + 10
-            res["loops"]["/".join(sig(r))] = {
-                "steady_us": rec["steady_us"], "device_us": dev_us,
-                "ratio": rec["steady_us"] / dev_us, "calls": rec["calls"],
-                "held": held, "within": ok}
-            print(f"profiled loop {'/'.join(sig(r))}"
-                  f"{' (VGG-16, held)' if held else ''}: steady "
-                  f"{rec['steady_us']:.2f} µs, device {dev_us:.2f} µs a "
-                  f"call, ratio {rec['steady_us'] / dev_us:.3f}"
-                  f"{'' if ok else ' OUTSIDE [0.9, 1.25] x + 10 µs'}")
-            if held and not ok:
-                bad.append(sig(r))
-            del xs, qt
-    if bad or sum(v["held"] for v in res["loops"].values()) != len(vgg):
-        fail(f"VGG-16 conv records outside [0.9, 1.25] x device time + "
-             f"10 µs (or missing): {bad}")
+    # (b), in a process of its own (late in this one the torch.profiler
+    # windows lose every kernel event)
+    res["loops"] = _subprocess("--profiled-loops")
+    RETAKEN.extend(res["loops"].pop("profiler_windows_retaken"))
 
     # (d): wkv6 at rwkv6-1.6b's decode shape
     B, T, H, K = 4, 1, 32, 64
@@ -2508,6 +2580,78 @@ def phase_profiler(dev, lm_prof: dict, conv_times: dict) -> dict:
         "flash_attention_cuda": lm_prof["calls"]["attention"],
         "wkv6_cuda": res["wkv6"]["calls"]["wkv6"]}
     return res
+
+
+def _profiled_loops(dev) -> dict:
+    """18(b): every conv shape of the zoo in a back-to-back loop of
+    ``PROFILED_REPS`` calls after a first one, paced by the host as a
+    caller's loop is: a record's steady µs against the device time of the
+    same call, taken right before the loop (`_device_ms`: the sum of the
+    call's kernels in a `torch.profiler` window over ``PROFILED_REPS``
+    calls, retaken under the five-window rule), held within [0.9, 1.25] x
+    + 10 µs for VGG-16's 13 shapes and printed for the others, whose
+    kernels may take less time than the host's launch, so that the events
+    hold host time as well.  A conv record's span starts where the wrapper
+    launches (``marks_launch``), after its checks and allocations."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import trace_conv_shapes, zoo_conv_shapes
+    from repro_torch.obs import kernel_profile as kprof
+    vgg = {sig(r) for r in trace_conv_shapes("vgg16", batch=BATCH, img=IMG,
+                                             n_classes=N_CLASSES)}
+    rng = np.random.default_rng(SEED + 7)
+    loops, bad = {}, []
+    with torch.no_grad():
+        for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
+            xs, qt, *_ = make_conv(r, rng, dev)
+            kw = {k: r[k] for k in ("stride", "padding", "groups")}
+
+            def call():
+                return ops.conv2d(xs, qt, impl="cuda", **kw)
+
+            def loop():
+                # outputs are dropped, so the allocator reuses one block:
+                # kept ones would make each call allocate within its events
+                for _ in range(PROFILED_REPS + 1):
+                    call()
+            dev_ms, _ = _device_ms(call, f"18(b) device time {sig(r)}",
+                                   reps=PROFILED_REPS)
+            dev_us = dev_ms * 1e3
+            kprof.clear()
+            kprof.set_enabled(True)
+            try:
+                loop()
+                torch.cuda.synchronize()
+                (rec,) = kprof.snapshot()["records"]
+            finally:
+                kprof.set_enabled(None)
+                kprof.clear()
+            held = sig(r) in vgg
+            ok = 0.9 * dev_us <= rec["steady_us"] <= 1.25 * dev_us + 10
+            loops["/".join(sig(r))] = {
+                "steady_us": rec["steady_us"], "device_us": dev_us,
+                "ratio": rec["steady_us"] / dev_us, "calls": rec["calls"],
+                "held": held, "within": ok}
+            print(f"profiled loop {'/'.join(sig(r))}"
+                  f"{' (VGG-16, held)' if held else ''}: steady "
+                  f"{rec['steady_us']:.2f} µs, device {dev_us:.2f} µs a "
+                  f"call, ratio {rec['steady_us'] / dev_us:.3f}"
+                  f"{'' if ok else ' OUTSIDE [0.9, 1.25] x + 10 µs'}")
+            if held and not ok:
+                bad.append(sig(r))
+            del xs, qt
+    if bad or sum(v["held"] for v in loops.values()) != len(vgg):
+        fail(f"VGG-16 conv records outside [0.9, 1.25] x device time + "
+             f"10 µs (or missing): {bad}")
+    return loops
+
+
+def profiled_loops_check() -> int:
+    """``chip_smoke.py --profiled-loops``: phase 18(b) in a fresh process;
+    prints ``{"loops": {...}}`` last."""
+    loops = _profiled_loops(torch.device("cuda", 0))
+    loops["profiler_windows_retaken"] = RETAKEN
+    print(json.dumps({"loops": loops}, default=str))
+    return 0
 
 
 BENCH_FILES = {"conv_kernels": "BENCH_torch_conv.json",
@@ -2814,8 +2958,10 @@ def _subprocess(flag: str, **env) -> dict:
         [sys.executable, str(ROOT / "chip_smoke.py"), flag], cwd=ROOT,
         timeout=600, capture_output=True, text=True,
         env=dict(os.environ, **env))
-    print(run.stdout[-6000:], end="")
     lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    # the child's report, less its result line (kept in the details)
+    print(run.stdout.replace(lines[-1], "")[-12000:] if lines
+          else run.stdout[-12000:], end="")
     if run.returncode != 0 or not lines:
         print(run.stderr[-4000:])
         fail(f"chip_smoke.py {flag} did not run to its end")
@@ -2943,12 +3089,355 @@ def phase_example_twins(dev) -> dict:
           f"quickstart B2 launches 1; wall {out['wall_s']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# 22: the autotune tables
+# ---------------------------------------------------------------------------
+
+
+def _tickets_zero(dev, what: str) -> None:
+    from repro_torch.kernels.log_conv2d import _TICKETS
+    torch.cuda.synchronize()
+    buf = _TICKETS.get(dev.index)
+    if buf is not None and bool(buf.any()):
+        fail(f"{what}: {int((buf != 0).sum())} split tickets left non-zero")
+
+
+def _cold_start_on_card(dev, nets: dict, x) -> dict:
+    """22(a): with an empty user tier, one batch-8 forward of each net and
+    gemma-2b's serve run resolve every conv and attention dispatch from the
+    packaged tier: no miss, no sweep, hit_warm = the lookups = the distinct
+    keys dispatched (knobs are resolved once a shape and process).  The
+    launch counts are zeroed just before and read just after."""
+    from repro_torch.benchmarks.conv_kernels import autotune_counts
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    autotune.reset_cache()
+    before = {op: autotune_counts(op) for op in ("conv2d", "attention")}
+    wrappers = _wrappers()
+    log_conv2d_fused.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
+    calls, by_net = [], {}
+    with torch.no_grad():
+        for name, net in nets.items():
+            n0, b0 = len(calls), log_conv2d_fused.launches
+            with cnn._capture_conv_shapes(calls):
+                cnn.CNNS[name][1](net, x, quant="logq6", conv_impl="auto")
+            torch.cuda.synchronize()
+            by_net[name] = {"dispatches": len(calls) - n0,
+                            "launches": log_conv2d_fused.launches - b0}
+            if by_net[name]["launches"] != CONVS_PER_NET[name]:
+                fail(f"22(a) {name}: {by_net[name]['launches']} conv "
+                     f"launches, expected {CONVS_PER_NET[name]}")
+    args = _serve_args(LM_ARCH)
+    eng = serve.build_engine(args)
+    attn_keys, at = set(), ops.attention
+
+    def attention(q, k, v, *, causal=True, window=None, **kw):
+        B, Tq, H, D = q.shape
+        attn_keys.add(autotune.attention_key(
+            B, Tq, k.shape[1], H, k.shape[2], D, causal=causal,
+            window=window))
+        return at(q, k, v, causal=causal, window=window, **kw)
+    for w in wrappers.values():
+        w.launches = 0
+    with _patched(attention=attention):
+        for r in serve.make_requests(args, eng.cfg.vocab):
+            eng.submit(r)
+        eng.run()
+    torch.cuda.synchronize()
+    launches = {op: w.launches for op, w in wrappers.items()}
+    del eng
+    torch.cuda.empty_cache()
+    res = {"nets": by_net, "lm_launches": launches}
+    for op, keys in (("conv2d", {_conv_key(c) for c in calls}),
+                     ("attention", attn_keys)):
+        now = autotune_counts(op)
+        d = {k: now[k] - before[op][k] for k in now}
+        d["lookups"] = d["hit_user"] + d["hit_warm"] + d["miss"]
+        d["distinct_keys"] = len(keys)
+        d["dispatches"] = (len(calls) if op == "conv2d"
+                           else launches["attention"])
+        res[op] = d
+        if not (d["miss"] == 0 and d["sweeps"] == 0 and d["hit_user"] == 0
+                and d["hit_warm"] == d["lookups"] == len(keys) > 0):
+            fail(f"22(a) cold start, {op}: {d}")
+    print(f"22(a) cold start (empty user tier): conv {res['conv2d']}, "
+          f"attention {res['attention']}; B1 launches "
+          f"{ {n: v['launches'] for n, v in by_net.items()} }, "
+          f"{LM_ARCH} serve run launches {launches}")
+    return res
+
+
+def _packaged_checks(dev) -> dict:
+    """22(b): every packaged conv config at batch 8, launched twice (same
+    bits), against `log_conv2d_blockwise` within 1e-4·(max|y_ref|+1); every
+    packaged attention config against `ref_attention` as phase 8 holds B3
+    (tensor-core cases also within `mma_error_limit`)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_geometry,
+                                                     mma_error_limit)
+    from repro_torch.kernels.log_conv2d import (log_conv2d_blockwise,
+                                                log_conv2d_fused)
+    from repro_torch.kernels.ref import ref_attention
+    from repro_torch.models.cnn import zoo_conv_shapes
+    from repro_torch.tools import build_autotune_table as table_tool
+    entries = autotune._load_packaged("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
+            knobs = entries[_conv_key(r)]["config"]
+            x, qt, hwio, codes, lane = make_conv(r, rng, dev)
+            kw = {k: r[k] for k in ("stride", "padding", "groups")}
+            y, again = (log_conv2d_fused(x, codes, qt.scale, lane=lane,
+                                         config=knobs, **kw)
+                        for _ in range(2))
+            want = log_conv2d_blockwise(x, hwio, qt.scale, **kw)
+            err, tol = _err_tol(y, want, 1e-4)
+            if not torch.equal(y.view(torch.int32), again.view(torch.int32)) \
+                    or not err <= tol:
+                fail(f"22(b) {sig(r)} at {knobs}: err {err:.3e} (tol "
+                     f"{tol:.3e}) or two calls gave different bits")
+            worst, n = max(worst, err / tol), n + 1
+            del x, qt, hwio, codes, y, again, want
+        _tickets_zero(dev, "22(b) convs")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        a_worst, a_n, mma = 0.0, 0, 0
+        for a in table_tool.attention_walk():
+            B, Tq, Tk, H, Hkv, D, causal, window = a["shape"]
+            cfg = entries[table_tool.attention_key_of(a)]["config"]
+            qdt = getattr(torch, a["q_dtype"])
+            kvdt = getattr(torch, a["kv_dtype"])
+            q = torch.randn((B, Tq, H, D), generator=gen, device=dev).to(qdt)
+            k, v = (torch.randn((B, Tk, Hkv, D), generator=gen,
+                                device=dev).to(kvdt) for _ in range(2))
+            kw = dict(causal=causal, window=window, q_offset=Tk - Tq)
+            geo = flash_attention_geometry(B, Tq, Tk, H, Hkv, D, qdt, kvdt,
+                                           **cfg)
+            got, again = (flash_attention_cuda(q, k, v, **kw, config=cfg)
+                          for _ in range(2))
+            err, tol = _err_tol(got, ref_attention(q, k, v, **kw),
+                                2e-4 if qdt == torch.float32 else 8e-3)
+            if not torch.equal(got.view(torch.int16),
+                               again.view(torch.int16)) or not err <= tol:
+                fail(f"22(b) {a['source']} {a['shape']} at {cfg}: err "
+                     f"{err:.3e} (tol {tol:.3e}) or different bits")
+            if geo["variant"] == "mma":
+                o, limit = mma_error_limit(q, k, v, **kw)
+                if bool(((got.float() - o).abs() > limit).any()):
+                    fail(f"22(b) {a['shape']}: outside mma_error_limit")
+                mma += 1
+            a_worst, a_n = max(a_worst, err / tol), a_n + 1
+        _tickets_zero(dev, "22(b) attention")
+    print(f"22(b) packaged configs: {n} conv configs at batch {BATCH} "
+          f"bit-identical over two calls, worst err/tol {worst:.3e}; {a_n} "
+          f"attention configs ({mma} on the tensor cores, within "
+          f"mma_error_limit), worst err/tol {a_worst:.3e}; tickets at zero")
+    return {"convs": n, "conv_worst_err_over_tol": worst, "attention": a_n,
+            "attention_worst_err_over_tol": a_worst, "mma": mma}
+
+
+def _measured_sweep(dev) -> dict:
+    """22(c): `build_autotune_table`'s ``--measure`` sweep (`measured_conv_winner`,
+    `measured_attention_winner`: each candidate held against the plain
+    version, then timed) into the user tier, over ResNet-34's three 1x1
+    stride-2 convs, MobileNet v1's 56² and 28² stride-1 depthwise convs and
+    gemma-2b's decode attention; then, for each shape, device µs (the
+    tuner's own timing, `autotune._device_us`) of the heuristic's knobs,
+    the packaged ones, the measured winner and the library call (`F.conv2d`
+    on decoded weights / SDPA with the kv head expanded)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.log_conv2d import (conv_nhwc, decode_codes,
+                                                log_conv2d_fused,
+                                                normalize_padding)
+    from repro_torch.kernels.ref import attention_mask
+    from repro_torch.models.cnn import zoo_conv_shapes
+    from repro_torch.tools import build_autotune_table as table_tool
+    zoo = zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES)
+    shapes = ([r for r in zoo if "resnet34" in r["nets"] and r["K"] == 1
+               and r["stride"] == 2]
+              + [r for r in zoo if "mobilenet_v1" in r["nets"]
+                 and r["groups"] == r["C"] > 1 and r["stride"] == 1
+                 and r["H"] in (IMG // 4, IMG // 8)])      # 56², 28²
+    if len(shapes) != 5:
+        fail(f"22(c): expected 5 conv shapes, found {len(shapes)}")
+    us = autotune._device_us
+    rng, rows = np.random.default_rng(SEED + 13), []
+    with torch.no_grad():
+        for r in shapes:
+            best, best_us = table_tool.measured_conv_winner(r, table_tool.REPS)
+            x, qt, hwio, codes, lane = make_conv(r, rng, dev)
+            kw = {k: r[k] for k in ("stride", "padding", "groups")}
+            pads = normalize_padding(r["padding"], r["K"], r["stride"],
+                                     r["H"], r["W"])
+            w = decode_codes(hwio) * qt.scale.reshape(-1)
+
+            def conv(knobs):
+                return lambda: log_conv2d_fused(x, codes, qt.scale,
+                                                lane=lane, config=knobs,
+                                                **kw)
+            packaged = packaged_conv_knobs(r)
+            row = {"shape": "/".join(sig(r)), "winner": best,
+                   "packaged": packaged, "winner_sweep_us": best_us,
+                   "heuristic_us": us(conv(None), table_tool.REPS),
+                   "packaged_us": us(conv(packaged), table_tool.REPS),
+                   "winner_us": us(conv(best), table_tool.REPS),
+                   "library_us": us(lambda: conv_nhwc(
+                       x, w, stride=r["stride"], pads=pads,
+                       groups=r["groups"]), table_tool.REPS)}
+            rows.append(row)
+            del x, qt, hwio, codes, w
+        _tickets_zero(dev, "22(c) conv sweeps")
+        a = next(a for a in table_tool.attention_walk()
+                 if a["source"] == f"{LM_ARCH} decode")
+        best, best_us = table_tool.measured_attention_winner(a, table_tool.REPS)
+        B, Tq, Tk, H, Hkv, D, causal, window = a["shape"]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        q = torch.randn((B, Tq, H, D), generator=gen, device=dev).to(
+            getattr(torch, a["q_dtype"]))
+        k, v = (torch.randn((B, Tk, Hkv, D), generator=gen, device=dev).to(
+            getattr(torch, a["kv_dtype"])) for _ in range(2))
+        kw = dict(causal=causal, window=window, q_offset=Tk - 1)
+        mask = attention_mask(Tq, Tk, causal=causal, window=window,
+                              q_offset=Tk - 1, k_offset=0, device=dev)
+        ql = q.float().transpose(1, 2)
+        kl, vl = (t.transpose(1, 2).repeat_interleave(H // Hkv, 1)
+                  for t in (k, v))
+        packaged = autotune._load_packaged("cuda")[
+            table_tool.attention_key_of(a)]["config"]
+
+        def attn(knobs):
+            return lambda: flash_attention_cuda(q, k, v, **kw, config=knobs)
+        rows.append({
+            "shape": f"attention {a['source']} {a['shape']}",
+            "winner": best, "packaged": packaged, "winner_sweep_us": best_us,
+            "heuristic_us": us(attn(None), table_tool.REPS),
+            "packaged_us": us(attn(packaged), table_tool.REPS),
+            "winner_us": us(attn(best), table_tool.REPS),
+            "library_us": us(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask[:, None]), table_tool.REPS)})
+        _tickets_zero(dev, "22(c) attention sweep")
+    for row in rows:
+        print(f"22(c) {row['shape']}: device µs heuristic "
+              f"{row['heuristic_us']:.3f}, packaged {row['packaged']} "
+              f"{row['packaged_us']:.3f}, measured winner {row['winner']} "
+              f"{row['winner_us']:.3f} (its sweep {row['winner_sweep_us']}),"
+              f" library {row['library_us']:.3f}")
+    return {"rows": rows, "reps": table_tool.REPS,
+            "time": "device time: CUDA events around calls queued behind a "
+            "sleep kernel (autotune._device_us)"}
+
+
+def _forwards_with_without(dev, nets: dict, x) -> dict:
+    """22(d): each net's batch-8 forward with the packaged tier against the
+    tier emptied (the heuristic's knobs), in this process, alternating
+    twice; the lesser forward ms (CUDA events over 3) and the busy ms of a
+    profiled forward of each.  Printed, not held."""
+    import tempfile
+    from repro_torch.kernels import autotune
+    from repro_torch.models import cnn
+    real = autotune.PACKAGED_DIR
+    res = {name: {"packaged": [], "heuristic": []} for name in nets}
+    busy = {name: {} for name in nets}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-empty-") as empty, \
+            torch.no_grad():
+        try:
+            for _ in range(2):
+                for mode, where in (("packaged", real), ("heuristic", empty)):
+                    autotune.PACKAGED_DIR = where
+                    autotune.reset_cache()
+                    for name, net in nets.items():
+                        def fwd(name=name, net=net):
+                            return cnn.CNNS[name][1](net, x, quant="logq6",
+                                                     conv_impl="auto")
+                        res[name][mode].append(time_ms(fwd, 3))
+                        if mode not in busy[name]:
+                            p = profile_forward(fwd)
+                            # no device events: the profiler saw nothing
+                            busy[name][mode] = (p["device_busy_ms"]
+                                                if p["device_kernels"]
+                                                else None)
+        finally:
+            autotune.PACKAGED_DIR = real
+            autotune.reset_cache()
+    out = {}
+    for name in nets:
+        out[name] = {f"{m}_forward_ms": min(v) for m, v in res[name].items()}
+        out[name].update({f"{m}_busy_ms": b for m, b in busy[name].items()},
+                         trials=res[name])
+        o = out[name]
+        print(f"22(d) {name:12s}: forward ms packaged "
+              f"{o['packaged_forward_ms']:.3f} / heuristic "
+              f"{o['heuristic_forward_ms']:.3f} (min of two), busy ms "
+              f"{o['packaged_busy_ms']} / {o['heuristic_busy_ms']} (None: "
+              f"the profiler saw no kernel)")
+    return out
+
+
+def autotune_check() -> int:
+    """``chip_smoke.py --autotune``: phase 22 in a fresh process (its
+    forwards are profiled, and late in a long process the `torch.profiler`
+    windows lose every event); prints ``{"autotune": {...}}`` last."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = phase_autotune(torch.device("cuda", 0))
+    print(json.dumps({"autotune": res}, default=str))
+    return 0
+
+
+def phase_autotune(dev) -> dict:
+    """22: the autotune tables on the card, into an empty user tier of its
+    own: (a) the cold-start gate, (b) the packaged configs checked, (c) a
+    measured sweep, (d) forwards with and without the packaged tier."""
+    import os
+    import tempfile
+    from repro_torch.kernels import autotune
+    from repro_torch.models.cnn import CNNS, make_cnn
+    from repro_torch.serving.quantize import quantize_cnn_params
+    prev = os.environ.get(autotune.ENV_PATH)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tier-") as tmp:
+        os.environ[autotune.ENV_PATH] = os.path.join(tmp, "user.json")
+        autotune.reset_cache()
+        try:
+            gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+            x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
+            nets = {name: quantize_cnn_params(make_cnn(
+                name, SEED, n_classes=N_CLASSES, device=dev)[0],
+                conv_layout="lane_packed") for name in CNNS}
+            res = {"cold_start": _cold_start_on_card(dev, nets, x),
+                   "packaged": _packaged_checks(dev),
+                   "sweep": _measured_sweep(dev),
+                   "forwards": _forwards_with_without(dev, nets, x)}
+            res["user_tier_entries"] = len(autotune._load()["entries"])
+        finally:
+            if prev is None:
+                os.environ.pop(autotune.ENV_PATH, None)
+            else:
+                os.environ[autotune.ENV_PATH] = prev
+            autotune.reset_cache()
+    del nets
+    torch.cuda.empty_cache()
+    return res
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on the GPU only")
-    from repro_torch.kernels import _build
+    import os
+    import tempfile
+    from repro_torch.kernels import _build, autotune
     dev = torch.device("cuda", 0)
+    # the autotune user tier starts empty (and stays this run's own): the
+    # main paths take the packaged tier's knobs, as a fresh install does
+    tier = tempfile.TemporaryDirectory(prefix="chip-smoke-user-tier-")
+    os.environ[autotune.ENV_PATH] = os.path.join(tier.name, "user.json")
+    autotune.reset_cache()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -3004,13 +3493,16 @@ def main() -> int:
         del paths[arch]["engine"]
         torch.cuda.empty_cache()
     rg, moe = paths[RG_ARCH], paths[MOE_ARCH]
-    prof = phase_profiler(dev, lm_prof, times)
+    prof = phase_profiler(dev, lm_prof)
     benches = phase_benches()
     training = phase_training(dev)
     twins = phase_example_twins(dev)
+    tier.cleanup()
+    tuned = _subprocess("--autotune")
 
     tot = {k: sum(n[k] for n in nets)
-           for k in ("ms", "event_ms", "plain_ms", "library_ms",
+           for k in ("ms", "heuristic_ms", "event_ms", "plain_ms",
+                     "library_ms",
                      "library_event_ms", "decode_conv_ms", "bound_ms",
                      "fp32_bound_ms", "bytes_ms", "ops_ms")}
 
@@ -3039,9 +3531,11 @@ def main() -> int:
             launches_by_path=conv_launches,
             time=f"device time by torch.profiler, sum over the "
             f"{sum(CONVS_PER_NET.values())} convs of one forward of each "
-            f"net, each conv timed alone; plain_ms and "
+            f"net, each conv timed alone at the packaged tier's knobs; "
+            "heuristic_ms at the heuristic's; plain_ms and "
             "the *_event_ms by CUDA events; bound at the 989 TFLOP/s bf16 "
             "tensor-core peak", event_ms=tot["event_ms"],
+            heuristic_ms=tot["heuristic_ms"],
             library_event_ms=tot["library_event_ms"],
             fp32_bound_ms=tot["fp32_bound_ms"],
             decode_conv_ms=tot["decode_conv_ms"],
@@ -3066,7 +3560,9 @@ def main() -> int:
             lm_times["attention decode"],
             launches_by_path=by_path["attention"],
             time=f"device time by torch.profiler over the {LM_ARCH} decode "
-            f"step's 18 calls (split-KV variant); plain_ms by CUDA events",
+            f"step's 18 calls (split-KV variant, the packaged tier's "
+            f"splits); plain_ms by CUDA events",
+            splits=lm_times["attention decode"]["splits"],
             event_ms=lm_times["attention decode"]["event_ms"],
             library_event_ms=lm_times["attention decode"]["library_event_ms"],
             long_shapes={k: {f: lm_times[k][f] for f in (
@@ -3094,7 +3590,7 @@ def main() -> int:
          "example": example, "recurrentgemma_slice": rg,
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
          "profiler": prof, "benches": benches, "training": training,
-         "example_twins": twins,
+         "example_twins": twins, "autotune": tuned,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -3122,5 +3618,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     sys.exit({"--resume-check": resume_check,
-              "--train-gemma": train_gemma_check}.get(
+              "--train-gemma": train_gemma_check,
+              "--wkv6-times": wkv6_times_check,
+              "--profiled-loops": profiled_loops_check,
+              "--autotune": autotune_check}.get(
                   " ".join(sys.argv[1:]), main)())

@@ -21,6 +21,15 @@ PEAK_FP32_FLOPS = 67e12
 WINDOWS = 5   # profiler windows a device timing may take before it fails
 
 
+def retake_wait(attempt: int) -> None:
+    """Wait before profiler window ``attempt`` (from 0): none before the
+    first, then 0.5, 1, 2 and 4 s.  The profiler on the card's machine now
+    and then loses every event of the windows of a short span, so the
+    retakes are spread over some 7.5 s rather than 2."""
+    if attempt:
+        time.sleep(0.5 * 2 ** (attempt - 1))
+
+
 def timed(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -57,9 +66,9 @@ def device_us(fn, device, reps: int = 5) -> float:
     """µs a call of ``fn`` after one warm-up call.  On a CUDA device: the
     device time, the sum of the call's kernels in a `torch.profiler` window
     over ``reps`` calls; a window that lost kernel events (a count that is
-    not a non-zero multiple of ``reps``) is taken again after half a
-    second, up to ``WINDOWS`` windows, then it raises.  On the CPU: the
-    host-clock mean."""
+    not a non-zero multiple of ``reps``) is taken again after a wait
+    (`retake_wait`), up to ``WINDOWS`` windows, then it raises.  On the
+    CPU: the host-clock mean."""
     fn()
     if torch.device(device).type != "cuda":
         t0 = time.perf_counter()
@@ -69,8 +78,7 @@ def device_us(fn, device, reps: int = 5) -> float:
     torch.cuda.synchronize()
     seen = []
     for attempt in range(WINDOWS):
-        if attempt:
-            time.sleep(0.5)
+        retake_wait(attempt)
         kern = _device_kernels(fn, reps)
         if kern and len(kern) % reps == 0:
             return sum(kern) / reps

@@ -26,15 +26,23 @@ layout and with ``ConvConfig(lane_pack=1)`` against blockwise, device
 time of the lane-packed codes against natural HWIO codes, and ``cuda``
 bytes.
 
+``cold_start`` is the autotune warm-start gate of the JAX bench: with an
+empty user tier, the four paper CNNs at 224 px (batch 1, as JAX's) are
+traced on the meta device exactly as serving dispatches them (packed
+weights, ``conv_impl="cuda"``, lane-packed depthwise codes), and every
+conv's launch knobs must resolve from the packaged tier (no miss, no
+sweep).
+
 Left out, each a ``null`` with a note in the JSON: JAX's 128-lane byte gate
 (``LANE_PACK_WIN``, a model of the TPU's lanes: the CUDA kernel reads a
-group's channels, not whole 128-lane blocks), the im2col traffic gate
-(``TRAFFIC_WIN_3X3``, which needs the unported ``pallas_im2col``) and
-``cold_start`` (the autotune warm-start gate; the port has no autotune
-table yet).
+group's channels, not whole 128-lane blocks) and the im2col traffic gate
+(``TRAFFIC_WIN_3X3``, which needs the unported ``pallas_im2col``).
 """
 
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -42,11 +50,14 @@ import torch
 from repro_torch.core.accelerator import mobilenet_v1_layers, vgg16_layers
 from repro_torch.core.device import resolve_device
 from repro_torch.core.logquant import QuantizedTensor, quantize_tensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.log_conv2d import (conv_nhwc, conv_traffic_bytes,
                                             lane_pack_codes,
                                             lane_pack_geometry,
                                             normalize_padding, sm_count)
+from repro_torch.models import cnn as cnn_models
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.serving.quantize import quantize_cnn_params
 
 from .common import (bound_us, card_name, device_us, fmt_table, timer_name,
                      write_json)
@@ -90,6 +101,62 @@ def _lane_packed(qt, groups: int):
     return QuantizedTensor(codes, qt.scale.reshape(-1), qt.cfg, qt.shape,
                            layout="lane_packed",
                            layout_meta=(lp["g_b"], lp["cin_lane"], groups))
+
+
+def autotune_counts(op: str = "conv2d") -> dict:
+    """Current `autotune_lookup` totals of one op, and all sweeps."""
+    reg = obs_metrics.REGISTRY
+    out = {r: reg.counter("autotune_lookup", op=op, result=r).value
+           for r in ("hit_user", "hit_warm", "miss")}
+    out["sweeps"] = sum(reg.counter("autotune_sweep", op=o).value
+                        for o in ("conv2d", "attention"))
+    return out
+
+
+def cold_start_section(img: int = IMG, batch: int = 1) -> dict:
+    """First-inference warm-start gate: with an empty user tier (the
+    environment's path pointed at a file that does not exist), the four
+    CNNs traced on the meta device through `ops.conv2d(impl="cuda")` on
+    packed weights, each conv's knobs resolved once a shape; every
+    resolution must come from the packaged tier."""
+    prev = os.environ.get(autotune.ENV_PATH)
+    tmp = tempfile.TemporaryDirectory(prefix="repro-torch-coldstart-")
+    os.environ[autotune.ENV_PATH] = os.path.join(tmp.name, "empty.json")
+    autotune.reset_cache()
+    per_net, before, calls = {}, autotune_counts(), []
+    try:
+        for name, (_, apply) in cnn_models.CNNS.items():
+            params, _ = cnn_models.make_cnn(name, device="meta")
+            qp = quantize_cnn_params(params, conv_layout="lane_packed")
+            n0, n_calls = autotune_counts(), len(calls)
+            with cnn_models._capture_conv_shapes(calls):
+                apply(qp, torch.empty((batch, img, img, 3), device="meta"),
+                      quant="logq6", conv_impl="cuda")
+            n1 = autotune_counts()
+            per_net[name] = dict({k: n1[k] - n0[k] for k in n0},
+                                 dispatches=len(calls) - n_calls)
+    finally:
+        if prev is None:
+            os.environ.pop(autotune.ENV_PATH, None)
+        else:
+            os.environ[autotune.ENV_PATH] = prev
+        autotune.reset_cache()
+        tmp.cleanup()
+    after = autotune_counts()
+    d = {k: after[k] - before[k] for k in before}
+    lookups = d["hit_user"] + d["hit_warm"] + d["miss"]
+    # knobs are resolved (and the lookup counted) once a distinct shape
+    keys = len({autotune.conv_key(c["B"], c["H"], c["W"], c["C"], c["K"],
+                                  c["Cout"], stride=c["stride"],
+                                  padding=c["padding"], groups=c["groups"])
+                for c in calls})
+    ok = (lookups > 0 and d["miss"] == 0 and d["sweeps"] == 0
+          and d["hit_warm"] == lookups == keys)
+    return {"img": img, "batch": batch, "conv_dispatches": len(calls),
+            "distinct_keys": keys, "lookups": lookups,
+            "hit_warm": d["hit_warm"],
+            "hit_user": d["hit_user"], "miss": d["miss"],
+            "sweeps": d["sweeps"], "per_net": per_net, "ok": ok}
 
 
 def run(device=None, root=None, img: int = IMG, batch: int = BATCH,
@@ -212,6 +279,12 @@ def _run(dev, n_sm, img, batch, reps, rng) -> dict:
                      "maxdiff_lane_pack_1", "ok"]))
     print(f"kernel probe 1x8x8x3 -> 16: |kernel - blockwise| = {d:.2e} "
           f"({'OK' if d < PROBE_LIMIT else 'FAIL'})")
+    cold = cold_start_section()
+    print(f"cold start (empty user tier, {cold['img']} px, batch "
+          f"{cold['batch']}): {cold['conv_dispatches']} conv dispatches, "
+          f"{cold['lookups']} resolutions, hit_warm {cold['hit_warm']}, miss "
+          f"{cold['miss']}, sweeps {cold['sweeps']} "
+          f"({'OK' if cold['ok'] else 'FAIL'})")
     return {
         "rows": rows, "probes": probes, "lane_rows": lane_rows,
         "timer": timer_name(dev), "card": card_name(dev), "img": img,
@@ -228,7 +301,5 @@ def _run(dev, n_sm, img, batch, reps, rng) -> dict:
         "traffic_win_3x3": None,
         "traffic_win_3x3_note": "needs the explicit-im2col path "
         "pallas_im2col, which is not ported (ROADMAP B.2)",
-        "cold_start": None,
-        "cold_start_note": "the autotune warm-start gate waits for the "
-        "port's autotune table (ROADMAP A.9)",
-        "ok": bool(ok)}
+        "cold_start": cold,
+        "ok": bool(ok and cold["ok"])}

@@ -45,20 +45,32 @@ MMA_KEYS = {64: 64, 128: 64, 256: 32}
 REPEAT_BLOCK_Q = 16
 
 
+def takes_mma(Tq: int, D: int, q_dtype, kv_dtype,
+              aligned: bool = True) -> bool:
+    """Whether a call takes the tensor-core variant: bf16 q, k and v with
+    Tq > 1, D a multiple of 16 (at most 256) and 16-byte aligned rows."""
+    return (q_dtype == kv_dtype == torch.bfloat16 and Tq > 1
+            and D % 16 == 0 and D <= MAX_HEAD_DIM and aligned)
+
+
 def flash_attention_geometry(B: int, Tq: int, Tk: int, H: int, Hkv: int,
                              D: int, q_dtype, kv_dtype, n_sm: int = 132,
-                             aligned: bool = True) -> dict:
+                             aligned: bool = True,
+                             splits: int | None = None) -> dict:
     """The launch shape of the CUDA kernel for q ``[B, Tq, H, D]`` and k, v
     ``[B, Tk, Hkv, D]`` on a card of ``n_sm`` SMs.
 
     bf16 q, k and v with Tq > 1, D a multiple of 16 and 16-byte aligned
-    rows (``aligned``) take the tensor-core variant ``"mma"``: blocks of
-    ``MMA_ROWS`` folded rows walking every key tile.  Every other call takes
-    ``"split"``: blocks of ``SPLIT_ROWS`` folded rows and one chunk of
-    ``keys_per_split`` keys (a multiple of ``SPLIT_KEYS``), with as many
-    chunks as bring the launch nearest one block per SM, at most
+    rows (``aligned``, `takes_mma`) take the tensor-core variant ``"mma"``:
+    blocks of ``MMA_ROWS`` folded rows walking every key tile.  Every other
+    call takes ``"split"``: blocks of ``SPLIT_ROWS`` folded rows and one
+    chunk of ``keys_per_split`` keys (a multiple of ``SPLIT_KEYS``), with
+    as many chunks as bring the launch nearest one block per SM, at most
     ``MAX_SPLITS`` and none shorter than ``MIN_SPLIT_KEYS`` keys unless Tk
     is: ``splits`` chunks cover the Tk keys exactly once and none is empty.
+    An explicit ``splits`` replaces that count and must keep the launcher's
+    contract (1 to ``MAX_SPLITS`` chunks, each of whole stages, none empty;
+    1 for ``"mma"``), else ValueError naming it.
     → dict with ``variant``, ``rows`` (folded rows a block), ``keys`` (keys
     a tile or stage), ``row_blocks``, ``splits``, ``keys_per_split`` and
     ``blocks``."""
@@ -66,8 +78,10 @@ def flash_attention_geometry(B: int, Tq: int, Tk: int, H: int, Hkv: int,
         raise ValueError(f"no attention: B={B} Tq={Tq} Tk={Tk} H={H} "
                          f"Hkv={Hkv} D={D}")
     rows = H // Hkv * Tq
-    if (q_dtype == kv_dtype == torch.bfloat16 and Tq > 1 and D % 16 == 0
-            and D <= MAX_HEAD_DIM and aligned):
+    if takes_mma(Tq, D, q_dtype, kv_dtype, aligned):
+        if splits not in (None, 1):
+            raise ValueError(f"splits={splits!r}: the tensor-core variant "
+                             f"takes 1")
         n_rb = -(-rows // MMA_ROWS)
         dp = next(n for n in (64, 128, 256) if D <= n)
         return {"variant": "mma", "rows": MMA_ROWS, "keys": MMA_KEYS[dp],
@@ -76,9 +90,21 @@ def flash_attention_geometry(B: int, Tq: int, Tk: int, H: int, Hkv: int,
     n_rb = -(-rows // SPLIT_ROWS)
     tiles = B * Hkv * n_rb
     stages = -(-Tk // SPLIT_KEYS)
-    splits = max(1, min(MAX_SPLITS, -(-n_sm // tiles), Tk // MIN_SPLIT_KEYS))
-    kps = -(-stages // splits) * SPLIT_KEYS
-    splits = -(-Tk // kps)
+    if splits is not None:
+        if not isinstance(splits, int) or \
+                not 1 <= splits <= min(MAX_SPLITS, stages):
+            raise ValueError(f"splits={splits!r}: 1 to "
+                             f"{min(MAX_SPLITS, stages)} chunks of {Tk} keys")
+        kps = -(-stages // splits) * SPLIT_KEYS
+        if -(-Tk // kps) != splits:
+            raise ValueError(f"splits={splits}: chunks of {kps} keys cover "
+                             f"{Tk} keys in {-(-Tk // kps)}, so one would "
+                             f"be empty")
+    else:
+        splits = max(1, min(MAX_SPLITS, -(-n_sm // tiles),
+                            Tk // MIN_SPLIT_KEYS))
+        kps = -(-stages // splits) * SPLIT_KEYS
+        splits = -(-Tk // kps)
     return {"variant": "split", "rows": SPLIT_ROWS, "keys": SPLIT_KEYS,
             "row_blocks": n_rb, "splits": splits, "keys_per_split": kps,
             "blocks": tiles * splits}
@@ -126,7 +152,7 @@ def _offset_arg(off, B: int, device):
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
-                         scale=None, q_offset=0, k_offset=0):
+                         scale=None, q_offset=0, k_offset=0, config=None):
     """q: [B, Tq, H, D]; k, v: [B, Tk, Hkv, D] with H a multiple of Hkv and
     D ≤ 256 → o [B, Tq, H, D] in q's dtype, on the CUDA kernel.
 
@@ -136,7 +162,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
     k[:, 0]: an int, or an int tensor ``[B]`` with one per batch row.
     `flash_attention_geometry` picks the variant: split-KV on the CUDA
     cores (every call with fp32 keys and values, an fp32 q, or Tq = 1), or
-    bf16 tensor cores (bf16 q, k and v in prefill).  A call whose keys are
+    bf16 tensor cores (bf16 q, k and v in prefill); ``config`` (a mapping,
+    or None) may give the split variant's ``splits``, checked against the
+    launcher's contract on every device.  A call whose keys are
     split gets an fp32 scratch for the partials and a ticket a row block
     from the per-device `split_tickets`.  Either way one launch, and the
     same inputs give the same bits.
@@ -160,7 +188,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    splits = (config or {}).get("splits")
     if q.device.type == "cpu":
+        if splits is not None:
+            flash_attention_geometry(B, Tq, Tk, H, Hkv, D, q.dtype, k.dtype,
+                                     aligned=_aligned16(q) and _aligned16(k)
+                                     and _aligned16(v), splits=splits)
         return ref_attention(q, k, v, causal=causal, window=window,
                              scale=scale, q_offset=q_offset,
                              k_offset=k_offset)
@@ -185,7 +218,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None,
     vec = _aligned16(k) and _aligned16(v)
     geo = flash_attention_geometry(B, Tq, Tk, H, Hkv, D, q.dtype, k.dtype,
                                    sm_count(q.device.index),
-                                   aligned=vec and _aligned16(q))
+                                   aligned=vec and _aligned16(q),
+                                   splits=splits)
     if geo["blocks"] > _I32_MAX:
         raise ValueError(f"shape outside the kernel's launch grid: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
@@ -357,7 +391,8 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
                             Hkv: int, D: int, *, block_q: int | None = None,
                             block_k: int | None = None,
                             itemsize: int = 4,
-                            kv_itemsize: int | None = None) -> dict:
+                            kv_itemsize: int | None = None,
+                            config=None) -> dict:
     """Bytes moved between device memory and the chip for one attention
     call, per implementation (the model of `repro.kernels.flash_attention.
     attention_traffic_bytes`, with ``"cuda"`` for the GQA-native kernel).
@@ -367,10 +402,10 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
     models a dispatch that expands K/V to H heads before a per-head kernel
     of ``block_q`` rows a block (``REPEAT_BLOCK_Q`` if not given).
     For ``"cuda"`` without ``block_q`` the blocks are the kernel's, from
-    `flash_attention_geometry` (q, k and v all of ``itemsize``): rows a
-    block by variant, and with kv splits the fp32 partials, written once
-    and read once by the combine, which ``"total"`` counts beside q, K/V
-    and out.  An explicit ``block_q`` (and ``block_k``, which no route's
+    `flash_attention_geometry` (with the ``splits`` of ``config`` where
+    given, as the wrapper launches it): rows a block by variant, and with
+    kv splits the fp32 partials, written once and read once by the
+    combine, which ``"total"`` counts beside q, K/V and out.  An explicit ``block_q`` (and ``block_k``, which no route's
     bytes depend on) models a one-pass kernel of that many rows a block, as
     the JAX model does.  ``kv_itemsize`` (default ``itemsize``) is that of
     k and v where it differs from q's (decode over an fp32 cache).  Returns
@@ -385,7 +420,9 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
         if block_q is None:
             dt, kvdt = (torch.bfloat16 if n == 2 else torch.float32
                         for n in (itemsize, kv_itemsize))
-            geo = flash_attention_geometry(B, Tq, Tk, H, Hkv, D, dt, kvdt)
+            geo = flash_attention_geometry(
+                B, Tq, Tk, H, Hkv, D, dt, kvdt,
+                splits=(config or {}).get("splits"))
             block_q = geo["rows"]
             if geo["splits"] > 1:                     # (m, l, acc) a row
                 part = 2 * 4 * geo["splits"] * B * Hkv * geo["row_blocks"] \
@@ -406,10 +443,9 @@ def attention_traffic_bytes(impl: str, B: int, Tq: int, Tk: int, H: int,
             "total": int(q_b + kv + out_b + part)}
 
 
-def attention_key(B, Tq, Tk, H, Hkv, D, *, causal=True, window=None,
-                  backend: str = "cuda") -> str:
-    """Everything that changes an attention launch, as one namespaced key,
-    in the format of `repro.kernels.autotune.attention_key` (``backend``
-    is ``cuda`` or ``cpu``)."""
-    return (f"attention|{backend}|b{B}|q{Tq}|k{Tk}|h{H}.{Hkv}|d{D}"
-            f"|c{int(bool(causal))}|w{window if window is not None else '-'}")
+def __getattr__(name: str):
+    # `attention_key` moved to kernels/autotune.py
+    if name == "attention_key":
+        from .autotune import attention_key
+        return attention_key
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

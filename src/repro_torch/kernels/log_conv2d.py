@@ -21,8 +21,9 @@ contract (`kernels/ops.conv2d` dispatches between them):
 All take ``packed [K, K, Cin//groups, Cout]`` int8 codes with a
 per-output-channel (or scalar) fp scale, `stride`, `padding`
 ("SAME"/"VALID"/int/explicit pairs, XLA's SAME convention) and `groups`.
-`conv_traffic_bytes` models the bytes each implementation moves and
-`conv_key` names a conv's shape, for the kernel-dispatch profiler.
+`conv_traffic_bytes` models the bytes each implementation moves, for the
+kernel-dispatch profiler and the autotuner; `conv_key`, a conv's shape key,
+lives in `kernels/autotune.py` and is re-exported here.
 """
 
 from __future__ import annotations
@@ -323,15 +324,56 @@ def _depthwise_smem(th: int, tw: int, ct: int, K: int, stride: int) -> int:
                      + K * K)
 
 
-def _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g, n_sm):
+def _check_tile(tile, K: int, stride: int) -> tuple[int, int, int]:
+    """An explicit depthwise tile against the launcher's contract: ``tw`` a
+    multiple of ``DW_PW``, ``ct`` in {4, 8, 16, 32}, at most ``DW_NT``
+    threads and ``DW_SMEM_MAX`` bytes of shared memory a block."""
+    try:
+        th, tw, ct = (int(v) for v in tile)
+    except (TypeError, ValueError):
+        raise ValueError(f"tile={tile!r}: a depthwise tile is (th, tw, ct)")
+    if th < 1 or tw < DW_PW or tw % DW_PW:
+        raise ValueError(f"tile={tile!r}: th >= 1 and tw a multiple of "
+                         f"{DW_PW}")
+    if ct not in (4, 8, 16, 32):
+        raise ValueError(f"tile={tile!r}: ct must be 4, 8, 16 or 32")
+    if ct // 4 * th * (tw // DW_PW) > DW_NT:
+        raise ValueError(f"tile={tile!r}: {ct // 4 * th * (tw // DW_PW)} "
+                         f"threads a block, at most {DW_NT}")
+    smem = _depthwise_smem(th, tw, ct, K, stride)
+    if smem > DW_SMEM_MAX:
+        raise ValueError(f"tile={tile!r}: {smem} bytes of shared memory a "
+                         f"block, at most {DW_SMEM_MAX}")
+    return th, tw, ct
+
+
+def _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g, n_sm,
+                        tile=None):
     """A depthwise block owns ``th x tw`` outputs of ``ct`` channels of one
-    image; a thread, 4 channels of ``DW_PW`` adjacent outputs.  ``tw``
-    splits Wo into near-equal tiles of at most ``DW_TW`` columns (half that
-    at stride > 1, where the patch is wider); ``ct`` is ``DW_CT`` or the
+    image; a thread, 4 channels of ``DW_PW`` adjacent outputs.  An explicit
+    ``tile`` is taken as it is (`_check_tile`).  Otherwise ``tw`` splits Wo
+    into near-equal tiles of at most ``DW_TW`` columns (half that at
+    stride > 1, where the patch is wider); ``ct`` is ``DW_CT`` or the
     power of two that holds Cout; ``th`` is the largest that keeps the
     block within ``DW_NT`` threads and the shared memory.  Where those
     tiles launch fewer than ``n_sm`` blocks, ``ct`` halves (down to 16) and
     then ``th`` shrinks until they do, or to one-row tiles."""
+    if tile is not None:
+        th, tw, ct = _check_tile(tile, K, stride)
+    else:
+        th, tw, ct = _depthwise_tile(B, Ho, Wo, Cout, K, stride, n_sm)
+    tiles_h, tiles_w, tiles_c = _cdiv(Ho, th), _cdiv(Wo, tw), _cdiv(Cout, ct)
+    return {"path": "depthwise",
+            "load": "cp.async" if C % 4 == 0 and cout_g == 1 else "gather",
+            "tile": (th, tw, ct), "threads": ct // 4 * th * (tw // DW_PW),
+            "smem_bytes": _depthwise_smem(th, tw, ct, K, stride),
+            "tiles_h": tiles_h, "tiles_w": tiles_w, "tiles_c": tiles_c,
+            "tiles": B * tiles_h * tiles_w * tiles_c, "splits": 1,
+            "stages_per_split": 1, "blocks": B * tiles_h * tiles_w * tiles_c}
+
+
+def _depthwise_tile(B, Ho, Wo, Cout, K, stride, n_sm):
+    """The heuristic's depthwise tile (`_depthwise_geometry`)."""
     tw_max = DW_TW if stride == 1 else DW_TW // 2
     tw = DW_PW * _cdiv(_cdiv(Wo, _cdiv(Wo, tw_max)), DW_PW)
     tiles_w = _cdiv(Wo, tw)
@@ -356,21 +398,33 @@ def _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g, n_sm):
         tiles_h += 1
         th = _cdiv(Ho, tiles_h)
         blocks = B * _cdiv(Ho, th) * tiles_w * _cdiv(Cout, ct)
-    tiles_h, tiles_c = _cdiv(Ho, th), _cdiv(Cout, ct)
-    return {"path": "depthwise",
-            "load": "cp.async" if C % 4 == 0 and cout_g == 1 else "gather",
-            "tile": (th, tw, ct), "threads": ct // 4 * th * (tw // DW_PW),
-            "smem_bytes": _depthwise_smem(th, tw, ct, K, stride),
-            "tiles_h": tiles_h, "tiles_w": tiles_w, "tiles_c": tiles_c,
-            "tiles": B * tiles_h * tiles_w * tiles_c, "splits": 1,
-            "stages_per_split": 1, "blocks": B * tiles_h * tiles_w * tiles_c}
+    return th, tw, ct
+
+
+def dense_shares(stages: int, splits: int) -> int:
+    """Stages a share when ``splits`` shares cover ``stages`` stages: the
+    launcher's contract is that they cover them exactly and none is empty,
+    else ValueError naming ``splits``."""
+    if not isinstance(splits, int) or not 1 <= splits <= stages:
+        raise ValueError(f"splits={splits!r}: 1 to {stages} shares of "
+                         f"{stages} stages")
+    sps = -(-stages // splits)
+    if -(-stages // sps) != splits:
+        raise ValueError(f"splits={splits}: shares of {sps} stages cover "
+                         f"{stages} stages in {-(-stages // sps)}, so one "
+                         f"would be empty")
+    return sps
 
 
 def log_conv2d_geometry(B: int, H: int, W: int, C: int, K: int, Cout: int,
                         stride: int = 1, padding="SAME", groups: int = 1,
-                        n_sm: int = 132) -> dict:
+                        n_sm: int = 132, splits: int | None = None,
+                        tile=None) -> dict:
     """The launch shape of the CUDA kernel for one conv on a card of
-    ``n_sm`` SMs.
+    ``n_sm`` SMs.  Each path takes one knob and ignores the other's:
+    ``tile`` (depthwise) and ``splits`` (dense); ``None`` leaves it to the
+    heuristic below, and an explicit one that breaks the launcher's
+    contract raises ValueError naming it.
 
     Depthwise (``C // groups == 1``): a block owns a ``tile`` of ``th x tw``
     outputs of ``ct`` channels of one image (`_depthwise_geometry`) and
@@ -399,17 +453,20 @@ def log_conv2d_geometry(B: int, H: int, W: int, C: int, K: int, Cout: int,
     cin_g, cout_g, M = C // groups, Cout // groups, B * Ho * Wo
     if cin_g == 1:
         return _depthwise_geometry(B, Ho, Wo, C, K, Cout, stride, cout_g,
-                                   n_sm)
+                                   n_sm, tile)
     m_tiles, n_tiles = -(-M // BM), -(-cout_g // BN)
     tiles = m_tiles * n_tiles * groups
     stages = -(-K * K * cin_g // BK)
-    want = min(stages, max(1, round(2 * n_sm / tiles)))
-    while True:
-        sps = -(-stages // want)
-        splits = -(-stages // sps)
-        if tiles * splits >= n_sm or splits == stages:
-            break
-        want += 1
+    if splits is not None:
+        sps = dense_shares(stages, splits)
+    else:
+        want = min(stages, max(1, round(2 * n_sm / tiles)))
+        while True:
+            sps = -(-stages // want)
+            splits = -(-stages // sps)
+            if tiles * splits >= n_sm or splits == stages:
+                break
+            want += 1
     return {"path": "dense", "load": "cp.async" if cin_g % 16 == 0
             else "gather", "bm": BM, "bn": BN, "bk": BK, "m_tiles": m_tiles,
             "n_tiles": n_tiles, "tiles": tiles, "stages": stages,
@@ -447,22 +504,36 @@ def _kernel_fn():
     return fn
 
 
+def knob_args(config) -> dict:
+    """``config`` (None or a mapping) → the geometry's ``splits`` / ``tile``
+    keyword arguments; other keys (``lane_pack``) are not launch knobs."""
+    config = config or {}
+    return {k: config.get(k) for k in ("splits", "tile")}
+
+
 def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
                      stride: int = 1, padding="SAME", groups: int = 1,
-                     lane: tuple[int, int] | None = None):
+                     lane: tuple[int, int] | None = None, config=None,
+                     on_launch=None):
     """NHWC conv on the CUDA kernel `csrc/log_conv2d.cu` → fp32 NHWC.
 
     x: fp32 [B, H, W, C], contiguous.  packed: contiguous int8 codes, either
     natural HWIO [K, K, C//groups, Cout] or, with ``lane=(g_b, cin_lane)``,
     the lane-packed [n_sb, K*K, g_b*cin_lane, Cout//groups] that
     `lane_pack_codes` makes, read as stored.  scale: scalar or
-    per-output-channel.  The launch shape comes from `log_conv2d_geometry`.
+    per-output-channel.  The launch shape comes from `log_conv2d_geometry`,
+    with the knobs of ``config`` (a mapping with ``splits`` and ``tile``,
+    None for the heuristic's), which are checked against the launcher's
+    contract on every device.  ``on_launch``, where given, is called with
+    no argument right before the launch (the kernel-dispatch profiler
+    starts its timed span there).
 
     A CUDA tensor launches the kernel (and adds one to
     ``log_conv2d_fused.launches``) or raises; a CPU tensor runs the plain
-    `log_conv2d_blockwise`.  Grad guard: with grad mode on, an input that
-    requires grad raises on every device (`_build.refuse_grad`), since the
-    kernel's output has no backward."""
+    `log_conv2d_blockwise`, and a meta tensor gives its output's shape.
+    Grad guard: with grad mode on, an input that requires grad raises on
+    every device (`_build.refuse_grad`), since the kernel's output has no
+    backward."""
     _build.refuse_grad("log_conv2d_fused", x, scale)
     if x.ndim != 4 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"log_conv2d_fused takes contiguous fp32 NHWC "
@@ -494,12 +565,18 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
         w_sb, w_gl, w_tap, w_in = taps * L * cout_g, cin_lane * cout_g, \
             L * cout_g, cout_g
     scale = _scale_vector(scale, Cout, x.device)
+    knobs = knob_args(config)
 
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
+        if any(v is not None for v in knobs.values()):
+            log_conv2d_geometry(B, H, W, C, K, Cout, stride, padding, groups,
+                                **knobs)
         codes = packed if lane is None else lane_unpack_codes(
             packed, (K, K, cin_g, Cout), groups, g_b, lane[1])
+        # contiguous NHWC, as the kernel writes it
         return log_conv2d_blockwise(x, codes, scale, cfg, stride=stride,
-                                    padding=padding, groups=groups)
+                                    padding=padding,
+                                    groups=groups).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"log_conv2d_fused runs on CUDA or CPU tensors, "
                          f"got {x.device}")
@@ -515,7 +592,7 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
     if max(x.numel(), y.numel(), packed.numel()) > _I32_MAX:
         raise ValueError("tensor too large for the kernel's 32-bit indexing")
     geo = log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
-                              sm_count(x.device.index))
+                              sm_count(x.device.index), **knobs)
     if geo["path"] == "dense" and (
             geo["m_tiles"] > _GRID_YZ_MAX
             or groups * geo["splits"] > _GRID_YZ_MAX):
@@ -526,14 +603,17 @@ def log_conv2d_fused(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG, *,
                            dtype=torch.float32, device=x.device)
         tickets = split_tickets(x.device, geo["tiles"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                       plane_table(cfg, x.device).data_ptr(), y.data_ptr(),
-                       part.data_ptr() if part is not None else None,
-                       tickets.data_ptr() if tickets is not None else None,
-                       B, H, W, C, Ho, Wo, Cout, K, stride, pads[0][0],
-                       pads[1][0], groups, g_b, w_sb, w_gl, w_tap, w_in,
-                       cfg.bits, cfg.frac_bits, geo["stages_per_split"],
-                       geo["splits"], *geo.get("tile", (0, 0, 0)), stream)
+    kernel, planes = _kernel_fn(), plane_table(cfg, x.device)
+    if on_launch is not None:
+        on_launch()
+    err = kernel(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                 planes.data_ptr(), y.data_ptr(),
+                 part.data_ptr() if part is not None else None,
+                 tickets.data_ptr() if tickets is not None else None,
+                 B, H, W, C, Ho, Wo, Cout, K, stride, pads[0][0],
+                 pads[1][0], groups, g_b, w_sb, w_gl, w_tap, w_in,
+                 cfg.bits, cfg.frac_bits, geo["stages_per_split"],
+                 geo["splits"], *geo.get("tile", (0, 0, 0)), stream)
     if err != 0:
         raise RuntimeError(f"log_conv2d CUDA launch failed: cudaError {err}")
     log_conv2d_fused.launches += 1
@@ -574,7 +654,7 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
                        Cout: int, *, stride: int = 1, padding="SAME",
                        groups: int = 1, act_itemsize: int = 4,
                        code_itemsize: int = 1, bits: int = 6,
-                       n_sm: int = 132) -> dict:
+                       n_sm: int = 132, config=None) -> dict:
     """Bytes moved between device memory and the chip for one conv call,
     per implementation → ``{"act", "w", "out", "act_w", "total"}``.
 
@@ -587,7 +667,9 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
     conv's bound).
 
     ``"cuda"`` counts what the kernel `csrc/log_conv2d.cu` fetches at the
-    launch shape of `log_conv2d_geometry` (on a card of ``n_sm`` SMs):
+    launch shape of `log_conv2d_geometry` (on a card of ``n_sm`` SMs, with
+    the ``splits`` and ``tile`` of ``config`` where given, as the wrapper
+    launches it):
 
       dense      each block reads the in-image x values of its rows for
                  the reduction indices of its share (so x is read once per
@@ -604,11 +686,11 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
                  and its scales once for each channel; y is written once.
 
     Accesses are counted first order: L2 hits and sub-sector waste are not
-    modelled.  JAX's ``lanes``, ``config`` and ``matmul_block`` are left
-    out: they model the TPU's whole-128-lane block DMAs and the explicit
-    im2col path ``pallas_im2col`` (not ported), neither of which the CUDA
-    kernel has; it reads natural and lane-packed codes alike, so its bytes
-    do not depend on the layout."""
+    modelled.  JAX's ``lanes`` and ``matmul_block`` are left out: they
+    model the TPU's whole-128-lane block DMAs and the explicit im2col path
+    ``pallas_im2col`` (not ported), neither of which the CUDA kernel has;
+    it reads natural and lane-packed codes alike, so its bytes do not
+    depend on the layout."""
     pads = normalize_padding(padding, K, stride, H, W)
     Ho, Wo = _out_size(H, K, stride, pads[0]), _out_size(W, K, stride, pads[1])
     cin_g = C // groups
@@ -625,7 +707,7 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
         act, w = x_b, w_codes + 4 * Cout
     elif impl == "cuda":
         g = log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
-                                n_sm)
+                                n_sm, **knob_args(config))
         if g["path"] == "depthwise":
             th, tw, ct = g["tile"]
             rows = _covered(Ho, th, stride, pads[0][0], (th - 1) * stride + K,
@@ -654,12 +736,9 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
     return out
 
 
-def conv_key(B, H, W, C, K, Cout, *, stride=1, padding="SAME", groups=1,
-             cfg: LogQuantConfig = DEFAULT_CFG, backend: str = "cuda") -> str:
-    """Everything that changes a conv's launch, as one namespaced key, in
-    the format of `repro.kernels.autotune.conv_key` (``backend`` is
-    ``cuda`` or ``cpu``)."""
-    (ph0, ph1), (pw0, pw1) = normalize_padding(padding, K, stride, H, W)
-    return (f"conv2d|{backend}|q{cfg.bits}.{cfg.frac_bits}"
-            f"|x{B}x{H}x{W}x{C}|k{K}o{Cout}|s{stride}|g{groups}"
-            f"|p{ph0}.{ph1}.{pw0}.{pw1}")
+def __getattr__(name: str):
+    # `conv_key` moved to kernels/autotune.py (which imports this module)
+    if name == "conv_key":
+        from .autotune import conv_key
+        return conv_key
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

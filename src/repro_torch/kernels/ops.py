@@ -11,9 +11,13 @@ Every op takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
   "ref"       — the full-materialisation oracles (tests)
   "auto"      — "cuda" for a CUDA tensor, "blockwise" for a CPU tensor
 
-plus a per-op frozen config: ``ConvConfig(lane_pack=...)`` for the
-grouped-conv layout, ``AttentionConfig`` for the blockwise version's chunk
-and math knobs, ``WkvConfig(chunk=...)`` for the chunked WKV.
+plus a per-op frozen config: ``ConvConfig`` for the grouped-conv layout
+and B1's launch knobs, ``AttentionConfig`` for the blockwise version's
+chunk and math knobs and B3's split count, ``WkvConfig(chunk=...)`` for
+the chunked WKV.  With ``impl="cuda"`` the launch knobs a config leaves
+unset come from the autotune tables (`kernels/autotune.py`) under the
+``cuda`` backend key, whatever the tensors' device, or else from the
+geometry's heuristic; ``autotune=True`` measures them first (on the card).
 
 While the kernel-dispatch profiler is on (`obs.kernel_profile`), every op
 goes through `kernel_profile.dispatch` with its shape key and analytic
@@ -34,11 +38,14 @@ import torch.nn.functional as F
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        quantize_tensor)
 from repro_torch.obs import kernel_profile as _kprof
-from .flash_attention import (attention_key, attention_traffic_bytes,
-                              flash_attention_cuda)
-from .log_conv2d import (conv_key, conv_traffic_bytes, lane_unpack_codes,
+from . import autotune as _autotune
+from .autotune import attention_key, conv_key
+from .flash_attention import (_aligned16, attention_traffic_bytes,
+                              flash_attention_cuda, flash_attention_geometry,
+                              takes_mma)
+from .log_conv2d import (conv_traffic_bytes, knob_args, lane_unpack_codes,
                          log_conv2d_blockwise, log_conv2d_fused,
-                         log_conv2d_ref, sm_count)
+                         log_conv2d_geometry, log_conv2d_ref, sm_count)
 from .log_matmul import log_matmul_cuda
 from .ref import positions, ref_attention, ref_log_matmul, ref_wkv6
 from .wkv6 import wkv6_chunked, wkv6_cuda
@@ -106,35 +113,129 @@ def log_matmul(x, qt: QuantizedTensor, *, impl: str = "auto"):
 
 @dataclasses.dataclass(frozen=True)
 class ConvConfig:
-    """Layout spec for `conv2d`.
+    """Layout and launch spec for `conv2d`.
 
     ``lane_pack`` says whether a `QuantizedTensor`'s baked ``"lane_packed"``
     layout may ride onto the kernel: ``None`` (or the baked factor) uses it
     as stored; any other value (``1`` = off) unpacks it to HWIO first.  An
     explicit value beats the baked layout.  The CUDA kernel reads natural
     HWIO codes as well as packed ones, so HWIO codes are never packed per
-    call."""
+    call.
+
+    ``splits`` (the dense path's split-K shares) and ``tile`` (the
+    depthwise path's ``(th, tw, ct)``) are B1's launch knobs; each path
+    reads its own.  Precedence: an explicit value here beats the autotune
+    table, which beats the geometry's heuristic (`log_conv2d_geometry`);
+    an explicit knob that breaks the launcher's contract raises
+    ValueError."""
     lane_pack: int | None = None
+    splits: int | None = None
+    tile: tuple[int, int, int] | None = None
 
 
-def _lane_pack(config) -> int | None:
+_WARNED_ONCE: set[str] = set()  # one-shot UserWarning dedupe, per process
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _WARNED_ONCE:
+        _WARNED_ONCE.add(msg)
+        warnings.warn(msg, UserWarning, stacklevel=4)
+
+
+def _conv_config_dict(config) -> dict:
+    """A `ConvConfig` or mapping → its explicit (non-None) fields, a tile
+    as a tuple."""
     if config is None:
-        return None
+        return {}
     if isinstance(config, ConvConfig):
-        return config.lane_pack
-    return dict(config).get("lane_pack")
+        config = dataclasses.asdict(config)
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in dict(config).items() if v is not None}
+
+
+def _hashable_padding(padding):
+    if isinstance(padding, (list, tuple)):
+        return tuple(tuple(p) if isinstance(p, (list, tuple)) else p
+                     for p in padding)
+    return padding
+
+
+def _resolve_conv(x, packed, scale, qcfg, shape, explicit: dict,
+                  autotune: bool, lane) -> dict:
+    """B1's launch knobs for one call: an explicit field beats the autotune
+    tiers, which beat the heuristic (None).  Resolved once a shape and
+    process (`autotune.RESOLVED`), where the lookup is counted; a table
+    config the launcher's contract refuses falls back to the heuristic
+    with a one-shot warning, an explicit one raises."""
+    B, H, W, C, K, Cout, stride, padding, groups = shape
+    ck = ("conv2d", shape, qcfg,
+          tuple(sorted(explicit.items())) if explicit else (), autotune)
+    hit = _autotune.RESOLVED.get(ck)
+    if hit is not None:
+        return hit
+    kw = dict(stride=stride, padding=padding, groups=groups)
+    field = "tile" if C // groups == 1 else "splits"
+    knobs = knob_args(explicit)
+    if any(v is not None for v in knobs.values()):
+        log_conv2d_geometry(B, H, W, C, K, Cout, **kw, **knobs)  # raises
+    if autotune and field in explicit:
+        _warn_once(f"ops.conv2d: autotune=True is a no-op because config= "
+                   f"pins {field}; drop it to run the tuning sweep for this "
+                   f"shape")
+    if autotune and field not in explicit:
+        tuned = _autotune.autotune_conv2d(x, packed, scale, qcfg, **kw,
+                                          lane=lane)
+    elif field not in explicit:
+        key = _autotune.conv_key(B, H, W, C, K, Cout, cfg=qcfg, **kw)
+        tuned = _autotune.lookup(key)
+        if tuned:
+            try:
+                log_conv2d_geometry(B, H, W, C, K, Cout, **kw,
+                                    **knob_args(tuned))
+            except ValueError as e:
+                _warn_once(f"ops.conv2d: the autotune table's {tuned} for "
+                           f"{key} breaks the launcher's contract ({e}); the "
+                           f"heuristic launches instead")
+                tuned = None
+    else:
+        tuned = None
+    config = {**_autotune.default_config(B, H, W, C, K, Cout, **kw),
+              **knob_args(tuned),
+              **{k: v for k, v in knobs.items() if v is not None}}
+    _autotune.RESOLVED[ck] = config
+    return config
+
+
+def conv_knobs(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
+               config: ConvConfig | dict | None = None) -> dict:
+    """The launch knobs (``splits``, ``tile``) with which
+    ``conv2d(x, qt, impl="cuda", config=config)`` launches B1 on this
+    call (for the traffic model and the checks of a caller)."""
+    B, H, W, C = x.shape
+    shape = (B, H, W, C, qt.shape[0], qt.shape[-1], stride,
+             _hashable_padding(padding), groups)
+    return _resolve_conv(x, None, None, qt.cfg, shape,
+                         _conv_config_dict(config), False, None)
 
 
 def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
            impl: str = "auto", out_dtype=None,
            qcfg: LogQuantConfig | None = None,
-           config: ConvConfig | dict | None = None):
+           config: ConvConfig | dict | None = None, autotune: bool = False):
     """x: [B, H, W, Cin] ⊛ dequant(qt [K, K, Cin//groups, Cout]) → NHWC out.
 
     `qt` is a `QuantizedTensor` of packed log codes in any of its layouts
     (natural, ``conv_taps``, ``lane_packed``); a plain float kernel is
     packed on the fly (inference only).  Supports stride,
-    SAME/VALID/int/explicit padding and grouped/depthwise convs."""
+    SAME/VALID/int/explicit padding and grouped/depthwise convs.
+
+    With ``impl="cuda"`` the kernel's knobs come from ``config`` (a
+    `ConvConfig` or mapping), filled field by field from the autotune
+    tables and then the heuristic (`_resolve_conv`); ``autotune=True``
+    measures the knob of the conv's path on the card first and persists
+    the winner (a no-op, with a one-shot warning, where ``config`` pins
+    it).  On a CPU tensor the knobs are resolved and checked, and the
+    plain version runs."""
     if impl == "pallas_im2col":
         raise ValueError("conv2d impl 'pallas_im2col' (explicit im2col onto "
                          "the log_matmul kernel) is not ported (ROADMAP.md "
@@ -143,6 +244,7 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
         qt = quantize_tensor(torch.as_tensor(qt, device=x.device),
                              qcfg or LogQuantConfig())
     impl = resolve_impl("conv2d", impl, x.device)
+    explicit = _conv_config_dict(config)
     packed, lane = qt.packed, None
     if qt.layout == "conv_taps":
         packed = packed.reshape(qt.shape)  # [taps, cin_g, Cout] → HWIO view
@@ -151,32 +253,42 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
         # any disagreement (other groups, a conflicting explicit lane_pack,
         # a plain impl) unpacks the codes to HWIO, which is always correct
         g_b, cin_lane, meta_groups = qt.layout_meta
-        want = _lane_pack(config)
+        want = explicit.get("lane_pack")
         if impl == "cuda" and meta_groups == groups and want in (None, g_b):
             lane = (g_b, cin_lane)
         else:
             packed = lane_unpack_codes(packed, qt.shape, meta_groups, g_b,
                                        cin_lane)
     kw = dict(stride=stride, padding=padding, groups=groups)
-    fn = {"cuda": functools.partial(log_conv2d_fused, lane=lane),
-          "ref": log_conv2d_ref, "blockwise": log_conv2d_blockwise}[impl]
+    B, H, W, C = x.shape
+    K, Cout = qt.shape[0], qt.shape[-1]
+    knobs = None
+    if impl == "cuda":
+        knobs = _resolve_conv(
+            x, packed, qt.scale, qt.cfg,
+            (B, H, W, C, K, Cout, stride, _hashable_padding(padding), groups),
+            explicit, autotune, lane)
+        fn = functools.partial(log_conv2d_fused, lane=lane, config=knobs)
+    else:
+        fn = {"ref": log_conv2d_ref, "blockwise": log_conv2d_blockwise}[impl]
 
-    def call():
-        y = fn(x, packed, qt.scale, qt.cfg, **kw)
+    def call(on_launch=None):
+        # the kernel calls on_launch right before its launch, where the
+        # profiler's timed span starts
+        y = (fn(x, packed, qt.scale, qt.cfg, **kw) if on_launch is None
+             else fn(x, packed, qt.scale, qt.cfg, on_launch=on_launch, **kw))
         return y if out_dtype is None else y.to(out_dtype)
     if not _kprof.PROFILER.enabled():
         return call()
-    B, H, W, C = x.shape
-    K, Cout = qt.shape[0], qt.shape[-1]
     n_sm = sm_count(x.device.index) if x.is_cuda else 132
     traffic = conv_traffic_bytes(impl, B, H, W, C, K, Cout, **kw,
                                  act_itemsize=x.element_size(),
-                                 bits=qt.cfg.bits, n_sm=n_sm)
+                                 bits=qt.cfg.bits, n_sm=n_sm, config=knobs)
     key = conv_key(B, H, W, C, K, Cout, **kw, cfg=qt.cfg,
                    backend=x.device.type)
     return _kprof.dispatch("conv2d", impl, key, traffic, call,
                            traced=_kprof.is_traced(x, packed),
-                           device=x.device)
+                           device=x.device, marks_launch=impl == "cuda")
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +298,15 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
 
 @dataclasses.dataclass(frozen=True)
 class AttentionConfig:
-    """Math spec for `attention`'s blockwise version.  The CUDA kernel's
-    tiles come from `flash_attention.flash_attention_geometry`."""
+    """Math spec for `attention`'s blockwise version, and the CUDA
+    kernel's one launch knob: ``splits``, the split-KV variant's chunk
+    count (the tensor-core variant takes none).  Its other tiles come from
+    `flash_attention.flash_attention_geometry`.  An explicit ``splits``
+    beats the autotune table, which beats the geometry's heuristic."""
     block_k: int | None = None       # blockwise kv chunk (default 1024)
     acc_dtype: Any = torch.float32   # blockwise score/accum math dtype
     gqa_broadcast: bool = False      # blockwise: einsum-broadcast GQA
+    splits: int | None = None        # cuda: split-KV chunks
 
 
 def _blockwise_attention(q, k, v, *, causal, window, scale, q_offset,
@@ -283,10 +399,70 @@ def _translate_legacy_attn_kwargs(config, legacy: dict):
     return AttentionConfig(**passed)
 
 
+def _resolve_attention(q, k, v, shape, explicit, autotune: bool,
+                       scale) -> tuple[int | None, bool]:
+    """B3's ``splits`` for one call → (splits, explicit?): an explicit value
+    beats the autotune tiers, which beat the heuristic (None); resolved
+    once a shape and process, as `_resolve_conv`.  A table value that the
+    launcher's contract refuses falls back to the heuristic with a
+    one-shot warning."""
+    B, Tq, Tk, H, Hkv, D, causal, window = shape
+    ck = ("attention", shape, explicit, autotune)
+    hit = _autotune.RESOLVED.get(ck)
+    if hit is not None:
+        return hit
+    if explicit is not None:     # checked by the wrapper, on every device
+        if autotune:
+            _warn_once("ops.attention: autotune=True is a no-op because "
+                       "config= pins splits; leave it unset to run the "
+                       "tuning sweep for this shape")
+        hit = (explicit, True)
+    elif autotune:
+        hit = (_autotune.autotune_attention(
+            q, k, v, causal=causal, window=window, scale=scale)["splits"],
+            False)
+    else:
+        key = _autotune.attention_key(B, Tq, Tk, H, Hkv, D, causal=causal,
+                                      window=window)
+        tuned = (_autotune.lookup(key) or {}).get("splits")
+        if tuned is not None:
+            try:
+                flash_attention_geometry(B, Tq, Tk, H, Hkv, D, torch.float32,
+                                         torch.float32, splits=tuned)
+            except ValueError as e:
+                _warn_once(f"ops.attention: the autotune table's splits="
+                           f"{tuned} for {key} breaks the launcher's "
+                           f"contract ({e}); the heuristic launches instead")
+                tuned = None
+        hit = (tuned, False)
+    _autotune.RESOLVED[ck] = hit
+    return hit
+
+
+def attention_knobs(q, k, v, *, causal: bool = True,
+                    window: int | None = None,
+                    config: AttentionConfig | None = None,
+                    autotune: bool = False, scale=None) -> dict:
+    """The launch knob (``splits``) with which ``attention(q, k, v,
+    impl="cuda", config=config)`` launches B3 on this call: resolved once a
+    shape (`_resolve_attention`), and None where a table's count meets a
+    call that takes the tensor-core variant, which has none."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    splits, pinned = _resolve_attention(
+        q, k, v, (B, Tq, Tk, H, Hkv, D, causal, window),
+        None if config is None else config.splits, autotune, scale)
+    if (splits is not None and not pinned and Tq > 1
+            and takes_mma(Tq, D, q.dtype, k.dtype, _aligned16(q)
+                          and _aligned16(k) and _aligned16(v))):
+        splits = None
+    return {"splits": splits}
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               scale=None, q_offset=0, k_offset=0, impl: str = "auto",
-              config: AttentionConfig | None = None, block_k=_UNSET,
-              acc_dtype=_UNSET, gqa_broadcast=_UNSET):
+              config: AttentionConfig | None = None, autotune: bool = False,
+              block_k=_UNSET, acc_dtype=_UNSET, gqa_broadcast=_UNSET):
     """GQA/MQA attention.  q: [B, Tq, H, D]; k, v: [B, Tk, Hkv, D] with H a
     multiple of Hkv.
 
@@ -295,12 +471,15 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     tensor ``[B]`` with one per batch row, on every impl.  An int gives the
     JAX package's semantics exactly.  ``block_k=`` / ``acc_dtype=`` /
     ``gqa_broadcast=`` are deprecated aliases of the `AttentionConfig`
-    fields."""
+    fields.  With ``impl="cuda"``, ``config.splits`` left unset comes from
+    the autotune tables or the heuristic (`_resolve_attention`;
+    ``autotune=True`` measures it on the card first); a table's split
+    count does not apply to a call that takes the tensor-core variant."""
     config = _translate_legacy_attn_kwargs(
         config, dict(block_k=block_k, acc_dtype=acc_dtype,
                      gqa_broadcast=gqa_broadcast))
     B, Tq, H, D = q.shape
-    Hkv = k.shape[2]
+    Tk, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"inconsistent attention operands: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
@@ -313,6 +492,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     impl = resolve_impl("attention", impl, q.device)
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
               k_offset=k_offset)
+    knobs = None
     if impl == "ref":
         call = lambda: ref_attention(q, k, v, **kw)
     elif impl == "blockwise":
@@ -320,13 +500,16 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
             q, k, v, **kw, block_k=config.block_k or 1024,
             acc_dtype=config.acc_dtype, gqa_broadcast=config.gqa_broadcast)
     else:
-        call = lambda: flash_attention_cuda(q, k, v, **kw)
+        knobs = attention_knobs(q, k, v, causal=causal, window=window,
+                                config=config, autotune=autotune,
+                                scale=scale)
+        call = lambda: flash_attention_cuda(q, k, v, **kw, config=knobs)
     if not _kprof.PROFILER.enabled():
         return call()
-    Tk = k.shape[1]
     traffic = attention_traffic_bytes(impl, B, Tq, Tk, H, Hkv, D,
                                       itemsize=q.element_size(),
-                                      kv_itemsize=k.element_size())
+                                      kv_itemsize=k.element_size(),
+                                      config=knobs)
     key = attention_key(B, Tq, Tk, H, Hkv, D, causal=causal, window=window,
                         backend=q.device.type)
     return _kprof.dispatch("attention", impl, key, traffic, call,

@@ -19,9 +19,12 @@ Three dispatch regimes:
            oldest first once more than ``MAX_PENDING`` wait, so memory
            stays bounded.  The time is stream time between the two
            events: the kernels of the call, and where the host is slower
-           than the kernels, the wrapper's host time as well.  The first
-           call of a key includes the kernel build at first use (the
-           counterpart of JAX's compile-inclusive first call).
+           than the kernels, the wrapper's host time as well.  An op whose
+           wrapper marks its launch (``marks_launch``: the conv kernel's)
+           starts the pair at that mark, so its checks, geometry and
+           allocations stay out of the time.  The first call of a key
+           includes the kernel build at first use (the counterpart of
+           JAX's compile-inclusive first call).
   cpu      the op ran on CPU tensors: timed by the host clock around the
            call (the CPU is synchronous).
   traced   the current CUDA stream is capturing a graph (`is_traced`):
@@ -166,11 +169,15 @@ class KernelProfiler:
             (op, impl, key), _new_entry(op, impl, key, bytes_moved))
 
     def dispatch(self, op: str, impl: str, key: str, bytes_moved: dict,
-                 fn, *, traced: bool, device=None):
+                 fn, *, traced: bool, device=None,
+                 marks_launch: bool = False):
         """The hook `kernels/ops.py` routes every kernel call through.
         ``device`` is the device of the op's operands: a CUDA device is
         timed by events on its current stream, anything else by the host
-        clock."""
+        clock.  With ``marks_launch``, ``fn`` takes an optional argument
+        on a CUDA device: a callable its kernel wrapper calls right before
+        the launch, where the timed span then starts (a call that never
+        calls it is timed from before ``fn``)."""
         if not self.enabled():
             return fn()
         if traced:
@@ -189,7 +196,19 @@ class KernelProfiler:
             e1 = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter_ns()
             e0.record(stream)
-            out = fn()
+            if marks_launch:
+                launch = torch.cuda.Event(enable_timing=True)
+                marked = []
+
+                def mark():
+                    if not marked:
+                        launch.record(stream)
+                        marked.append(True)
+                out = fn(mark)
+                if marked:
+                    e0 = launch
+            else:
+                out = fn()
             e1.record(stream)
             with self._lock:
                 ent = self._entry(op, impl, key, bytes_moved)

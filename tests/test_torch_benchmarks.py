@@ -80,27 +80,39 @@ def _walk_depthwise(g, B, H, W, C, K, Cout, stride, pads):
     return act, w, 4 * B * Ho * Wo * Cout
 
 
-WALK_SHAPES = [  # B, H, W, C, K, Cout, stride, padding, groups, n_sm
-    (1, 4, 4, 64, 3, 64, 1, "SAME", 1, 132),     # split-K dense
-    (2, 9, 7, 32, 3, 80, 2, "SAME", 1, 1),       # no split, ragged N tile
-    (1, 8, 8, 16, 3, 32, 1, ((1, 2), (0, 1)), 4, 132),   # grouped
-    (2, 15, 16, 12, 3, 12, 2, "SAME", 12, 132),  # depthwise, stride 2
+WALK_SHAPES = [  # B, H, W, C, K, Cout, stride, padding, groups, n_sm, knobs
+    (1, 4, 4, 64, 3, 64, 1, "SAME", 1, 132, None),     # split-K dense
+    (2, 9, 7, 32, 3, 80, 2, "SAME", 1, 1, None),       # no split, ragged N
+    (1, 8, 8, 16, 3, 32, 1, ((1, 2), (0, 1)), 4, 132, None),   # grouped
+    (2, 15, 16, 12, 3, 12, 2, "SAME", 12, 132, None),  # depthwise, stride 2
+    # the knobs of an autotune table, as the wrapper launches them
+    (1, 6, 6, 96, 3, 72, 2, "SAME", 1, 132, dict(splits=1)),
+    (1, 6, 6, 96, 3, 72, 2, "SAME", 1, 132, dict(splits=3)),
+    (1, 6, 6, 96, 3, 72, 2, "SAME", 1, 132, dict(splits=27)),
+    (1, 8, 8, 16, 3, 32, 1, "SAME", 4, 132, dict(splits=2)),
+    (2, 15, 16, 12, 3, 12, 2, "SAME", 12, 132, dict(tile=(3, 4, 4))),
+    (2, 15, 16, 12, 3, 12, 1, "SAME", 12, 132, dict(tile=(8, 8, 8))),
+    (1, 19, 21, 40, 3, 40, 1, "SAME", 40, 132, dict(tile=(19, 12, 16))),
 ]
 
 
 @pytest.mark.parametrize("shape", WALK_SHAPES)
 def test_cuda_bytes_match_tile_walk(shape):
-    B, H, W, C, K, Cout, stride, padding, groups, n_sm = shape
+    B, H, W, C, K, Cout, stride, padding, groups, n_sm, knobs = shape
     pads = tlc.normalize_padding(padding, K, stride, H, W)
     g = tlc.log_conv2d_geometry(B, H, W, C, K, Cout, stride, padding, groups,
-                                n_sm)
+                                n_sm, **tlc.knob_args(knobs))
+    for name, value in (knobs or {}).items():
+        assert g[name] == value                  # the knob took effect
     if g["path"] == "dense":
         walked = _walk_dense(g, B, H, W, C, K, Cout, stride, pads, groups, 6)
-        assert (g["splits"] > 1) == (n_sm > 1)   # the shapes cover both
+        if knobs is None:                        # the shapes cover both
+            assert (g["splits"] > 1) == (n_sm > 1)
     else:
         walked = _walk_depthwise(g, B, H, W, C, K, Cout, stride, pads)
     got = tlc.conv_traffic_bytes("cuda", B, H, W, C, K, Cout, stride=stride,
-                                 padding=padding, groups=groups, n_sm=n_sm)
+                                 padding=padding, groups=groups, n_sm=n_sm,
+                                 config=knobs)
     assert (got["act"], got["w"], got["out"]) == walked
     assert got["act_w"] == got["act"] + got["w"]
     assert got["total"] == sum(walked)
@@ -122,7 +134,7 @@ def test_min_bytes_are_each_operand_once():
 
 @pytest.mark.skipif(jlc is None, reason="needs the JAX package")
 @pytest.mark.parametrize("impl", ["fp32", "blockwise", "ref"])
-@pytest.mark.parametrize("shape", [s[:9] for s in WALK_SHAPES]
+@pytest.mark.parametrize("shape", [s[:9] for s in WALK_SHAPES[:4]]
                          + [(1, 8, 8, 3, 5, 4, 2, 2, 1)])
 def test_plain_bytes_match_jax(impl, shape):
     B, H, W, C, K, Cout, stride, padding, groups = shape
@@ -145,7 +157,10 @@ def test_conv_bench_twin_on_cpu(tmp_path):
     saved = json.loads((tmp_path / "BENCH_torch_conv.json").read_text())
     assert len(saved["rows"]) == 4 and len(saved["lane_rows"]) == 4
     assert saved["timer"] == "host clock"
-    assert saved["cold_start"] is None and saved["cold_start_note"]
+    cold = saved["cold_start"]       # the packaged tier covers the zoo
+    assert cold["ok"] and cold["miss"] == 0 and cold["sweeps"] == 0
+    assert cold["hit_warm"] == cold["lookups"] == cold["distinct_keys"] > 0
+    assert cold["conv_dispatches"] == 13 + 27 + 36 + 26
     for r in saved["rows"]:
         assert r["bytes_min"] <= r["bytes_cuda"]
         assert r["rel_quant_err"] < conv_kernels.QUANT_ERR_LIMIT

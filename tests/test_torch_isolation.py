@@ -122,6 +122,46 @@ def test_check_supported_is_gone_and_the_engine_refuses_embedding_archs():
             ServeEngine(cfg, params)
 
 
+def test_autotune_modules_stand_alone(tmp_path, monkeypatch):
+    """The tuner and `build_autotune_table` are port files like the others
+    (no `jax`, no `repro`), the table tool's ``--measure`` refuses without
+    a card, and
+    the package data ships the packaged table."""
+    from repro_torch.tools import build_autotune_table
+    files = {p.relative_to(ROOT / "src" / "repro_torch").as_posix(): p
+             for p in PORT_FILES if p.name != "chip_smoke.py"}
+    for name in ("kernels/autotune.py", "tools/build_autotune_table.py"):
+        assert name in files
+        for mod in _imported_modules(files[name]):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_autotune_table.main(["--measure",
+                                   "--out", str(tmp_path / "t.json")])
+    assert not (tmp_path / "t.json").exists()
+    pyproject = (ROOT / "pyproject.toml").read_text()
+    assert '"repro_torch.kernels" = ["csrc/*.cu", "autotune_tables/*.json"]' \
+        in pyproject
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "autotune_tables"
+            / "cuda.json").exists()
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.tools.time_autotune_candidates",
+    "repro_torch.benchmarks.dispatch_overhead"])
+def test_card_timing_scripts_refuse_without_a_card(module, tmp_path,
+                                                   monkeypatch):
+    """The scripts that time launches on the card (every autotune
+    candidate; the host cost of a dispatch) raise without one and write
+    nothing."""
+    import importlib
+    mod = importlib.import_module(module)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--out", str(tmp_path / "t.json")])
+    assert not (tmp_path / "t.json").exists()
+
+
 def test_launch_train_refuses_production_naming_the_roadmap():
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="queue A, item 17"):

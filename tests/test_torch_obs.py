@@ -353,6 +353,47 @@ def test_profiler_cuda_events_resolve_lazily(monkeypatch):
     assert {e[3] for e in spans} == {2_000_000}   # the device duration, ns
 
 
+def test_profiler_cuda_span_starts_at_the_launch_mark(monkeypatch):
+    """With ``marks_launch`` a CUDA dispatch times from the event its kernel
+    wrapper records right before the launch (once, however often it is
+    called), not from the one before the call; a call that never marks is
+    timed from the early event; without ``marks_launch`` ``fn`` takes no
+    argument."""
+    recorded, starts = [], []
+
+    class Ev(_FakeEvent):
+        def record(self, stream=None):
+            recorded.append(self)
+
+        def elapsed_time(self, other):
+            starts.append(self)
+            return 2.0
+    monkeypatch.setattr(kprof.torch.cuda, "Event", Ev)
+    monkeypatch.setattr(kprof.torch.cuda, "current_stream",
+                        lambda dev=None: "stream")
+    monkeypatch.setattr(kprof.torch.cuda, "synchronize", lambda dev=None: 0)
+    p = kprof.KernelProfiler()
+    p.set_enabled(True)
+
+    def launches(mark=None):
+        mark()
+        mark()
+        return 7
+    assert p.dispatch("conv2d", "cuda", "k", {"total": 8}, launches,
+                      traced=False, device="cuda:0", marks_launch=True) == 7
+    assert len(recorded) == 3          # before the call, the mark, after it
+    p.snapshot()
+    assert starts == [recorded[1]]
+    recorded.clear()
+    starts.clear()
+    p.dispatch("conv2d", "cuda", "k", {"total": 8}, lambda mark=None: 1,
+               traced=False, device="cuda:0", marks_launch=True)
+    p.dispatch("wkv6", "cuda", "k", {"total": 8}, lambda: 1, traced=False,
+               device="cuda:0")
+    p.snapshot()
+    assert starts == [recorded[0], recorded[2]] and len(recorded) == 4
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
