@@ -199,12 +199,22 @@ goes wrong:
      of the same call taken right before the loop, held within
      [0.9, 1.25] x + 10 µs for VGG-16's 13 shapes and printed for the
      rest; `ops.wkv6` at rwkv6-1.6b's decode shape; the top ten records by
-     total time;
- 19. the bench twins (`repro_torch.benchmarks`: conv_kernels at 224 px,
-     attention_kernels, telemetry_overhead) through their CLI in a process
-     of their own, their JSON under `chiprun_out/`; the conv and attention
-     twins' correctness and traffic gates must hold, the telemetry
-     overhead is printed;
+     total time.  `repro_torch.analysis.report.metrics_report` renders
+     gemma-2b's `metrics_snapshot()`: one per-op row a profiler record,
+     each row's GB/s the record's bytes over its steady µs; it is printed;
+ 19. the ten bench twins (`repro_torch.benchmarks`: conv_kernels at 224
+     px, attention_kernels, telemetry_overhead, the paper's fig1_quant,
+     fig17_pe_cost, fig19_utilization, fig20_throughput,
+     table2_comparison, table3_latency, and ablation_grad_compress)
+     through their CLI in a process of their own (``chip_smoke.py
+     --benches``), their JSON under `chiprun_out/`; the conv and attention
+     twins' correctness and traffic gates must hold, the five analytic
+     benches and fig1_quant (at the JAX bench's size) must read
+     REPRODUCED, the ablation's EF gap must stay under 0.15 nats; the
+     telemetry overhead is printed.  In the same process fig1_quant runs
+     once more at full width (VGG-16 at width 1.0, 224 px, 1000 classes,
+     batch 8): its SNR gain, three logit correlations and verdict are
+     printed, and only their finiteness is held;
  20. LM training (`repro_torch.training`, `launch/train.py`), which runs
      no kernel: attention and the RWKV recurrence take their plain,
      differentiable versions (``attn_impl="blockwise"``).  (a) One step of
@@ -285,10 +295,12 @@ T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks from NVIDIA's data sheet: fp32 on the CUDA cores, dense
-# bf16 on the tensor cores, HBM3
-from repro_torch.benchmarks.common import (  # noqa: E402
-    PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES, retake_wait)
+# H100 SXM peaks from NVIDIA's data sheet (`repro_torch.analysis.roofline`,
+# their one definition): fp32 on the CUDA cores, dense bf16 on the tensor
+# cores, HBM3
+from repro_torch.analysis.roofline import (  # noqa: E402
+    HBM_BW as PEAK_HBM_BYTES, PEAK_FLOPS as PEAK_BF16_FLOPS, PEAK_FP32_FLOPS)
+from repro_torch.benchmarks.common import retake_wait  # noqa: E402
 
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
@@ -2432,8 +2444,9 @@ def _check_records(recs: list, expected: dict, launches: dict,
 def phase_profiler_lm(dev, engine) -> dict:
     """18(c): gemma-2b's engine serving the 8 requests at the serve
     defaults with the profiler on: the prefill and decode programs, the
-    records held by `_check_records`; then the decode-step ms with the
-    profiler off and on (alternating, min of two)."""
+    records held by `_check_records`, the report of its
+    `metrics_snapshot()` by `_check_report`; then the decode-step ms with
+    the profiler off and on (alternating, min of two)."""
     import copy
     from repro_torch.launch import serve
     from repro_torch.obs import kernel_profile as kprof
@@ -2451,7 +2464,8 @@ def phase_profiler_lm(dev, engine) -> dict:
                 eng.submit(r)
             eng.run()
         torch.cuda.synchronize()
-        snap = eng.metrics_snapshot()["kernels"]
+        full = eng.metrics_snapshot()
+        snap = full["kernels"]
     finally:
         kprof.set_enabled(None)
         kprof.clear()
@@ -2466,6 +2480,7 @@ def phase_profiler_lm(dev, engine) -> dict:
            **_check_records(snap["records"], expected, launches,
                             f"{LM_ARCH} serve run under the profiler")}
     res["rows"] = [record_row(r) for r in snap["records"]]
+    res["report"] = _check_report(full)
     print(f"  programs: " + ", ".join(
         f"{n} {p['calls']} calls, first {p['first_us']:.0f} µs, steady "
         f"{p['steady_us']:.0f} µs" for n, p in progs.items()))
@@ -2494,6 +2509,30 @@ def phase_profiler_lm(dev, engine) -> dict:
           f"clock, min of two): profiler off {ms['off']:.3f} ms, on "
           f"{ms['on']:.3f} ms")
     return res
+
+
+def _check_report(snap: dict) -> dict:
+    """18(c): `analysis.report.metrics_report` of the engine's
+    `metrics_snapshot()`: one per-op row a profiler record, each row's GB/s
+    the record's ``bytes.total / steady_us``; the report is printed."""
+    from repro_torch.analysis.report import metrics_report
+    recs = snap["kernels"]["records"]
+    text = metrics_report(snap)
+    ops = {r["op"] for r in recs}
+    rows = [ln for ln in text.splitlines()
+            if ln.startswith("| ") and ln[2:].split(" |")[0] in ops]
+    if len(rows) != len(recs):
+        fail(f"the report has {len(rows)} per-op rows for {len(recs)} "
+             f"profiler records")
+    for r in recs:
+        row = [ln for ln in rows if f"`{r['key']}`" in ln
+               and ln.startswith(f"| {r['op']} | {r['impl']} |")]
+        want = r["bytes"]["total"] / r["steady_us"] / 1e3     # GB/s
+        got = float(row[0].split(" | ")[6]) if len(row) == 1 else None
+        if got is None or abs(got - want) > 5e-4 + 1e-6 * want:
+            fail(f"report row for {r['key']}: {row}, want {want:.3f} GB/s")
+    print(text)
+    return {"rows": len(rows), "records": len(recs)}
 
 
 def phase_profiler(dev, lm_prof: dict) -> dict:
@@ -2656,41 +2695,97 @@ def profiled_loops_check() -> int:
 
 BENCH_FILES = {"conv_kernels": "BENCH_torch_conv.json",
                "attention_kernels": "BENCH_torch_attention.json",
-               "telemetry_overhead": "BENCH_torch_telemetry.json"}
+               "telemetry_overhead": "BENCH_torch_telemetry.json",
+               "fig1_quant": "BENCH_torch_fig1_quant.json",
+               "ablation_grad_compress":
+                   "BENCH_torch_ablation_grad_compress.json"}
+# the analytic paper benches: no device, no JSON; their verdict is read
+# from the CLI's results
+ANALYTIC_BENCHES = ("fig17_pe_cost", "fig19_utilization", "fig20_throughput",
+                    "table2_comparison", "table3_latency")
+FIG1_FULL = dict(width_mult=1.0, img=224, n_classes=1000, batch=8)
 
 
-def phase_benches() -> dict:
-    """19: the bench twins on the card, through their CLI
-    (`python -m repro_torch.benchmarks.run --device cuda`) in a process of
-    their own, whose profiler windows start fresh (late in this process
-    they lost kernel events); their JSON under chiprun_out/.  The conv and
-    attention twins' correctness and analytic gates must hold; the
-    telemetry overhead (host clock) is printed, not held."""
-    import os
+def benches_check() -> int:
+    """``chip_smoke.py --benches``: phase 19 in a fresh process.  The ten
+    twins through the CLI (`repro_torch.benchmarks.run.main` with
+    ``--device cuda --out chiprun_out``), then fig1_quant once more at full
+    width (VGG-16 at width 1.0, 224 px, 1000 classes, batch 8; its JSON
+    under ``chiprun_out/fig1_quant_full_width/``); prints ``{"benches":
+    {...}}`` last: the CLI's exit code, each twin's verdict (and the whole
+    result of the paper benches that run on the card), the full-width
+    result and the seconds of each part."""
+    from repro_torch.benchmarks import fig1_quant
+    from repro_torch.benchmarks import run as bench_run
     out = ROOT / "chiprun_out"
     for name in BENCH_FILES.values():
         (out / name).unlink(missing_ok=True)
-    sys.stdout.flush()
+    results = {}
     t0 = time.perf_counter()
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.benchmarks.run", "--device",
-         "cuda", "--out", str(out)], cwd=ROOT, timeout=900,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    print(f"bench twins: {time.perf_counter() - t0:.1f} s, exit code "
-          f"{run.returncode} (1 where a twin's own gate failed)")
-    if run.returncode not in (0, 1) or not all(
+    rc = bench_run.main(["--device", "cuda", "--out", str(out)],
+                        results=results)
+    t1 = time.perf_counter()
+    print(f"\n=== fig1_quant at full width {FIG1_FULL} " + "=" * 8)
+    full = fig1_quant.run("cuda", out / "fig1_quant_full_width", **FIG1_FULL)
+    t2 = time.perf_counter()
+    verdicts = {n: {"ok": r.get("ok")} for n, r in results.items()}
+    for n in ("fig1_quant", "ablation_grad_compress"):
+        verdicts[n] = results[n]
+    print(json.dumps({"benches": {
+        "exit_code": rc, "verdicts": verdicts, "fig1_full_width": full,
+        "twins_s": t1 - t0, "fig1_full_width_s": t2 - t1}}, default=str))
+    return 0
+
+
+def phase_benches() -> dict:
+    """19: the bench twins on the card, through their CLI in a process of
+    their own (``chip_smoke.py --benches``, whose profiler windows start
+    fresh: late in this process they lost kernel events), their JSON under
+    chiprun_out/.  The conv and attention twins' correctness and analytic
+    gates must hold, the five analytic paper benches and fig1_quant (at the
+    bench's size) must read REPRODUCED and the ablation's EF gap must hold
+    its 0.15 gate; the telemetry overhead (host clock) is printed, not
+    held.  fig1_quant at full width is printed with its verdict, which is
+    not held: it is a finding on random weights, not a check of the port."""
+    t0 = time.perf_counter()
+    res = _subprocess("--benches")
+    res["seconds"] = time.perf_counter() - t0
+    out = ROOT / "chiprun_out"
+    print(f"bench twins: {res['twins_s']:.1f} s for the ten, "
+          f"{res['fig1_full_width_s']:.1f} s for fig1_quant at full width, "
+          f"{res['seconds']:.1f} s with the process; CLI exit code "
+          f"{res['exit_code']} (1 where a twin's own gate failed)")
+    if res["exit_code"] not in (0, 1) or not all(
             (out / n).exists() for n in BENCH_FILES.values()):
         fail("the bench twins did not run to their end")
-    res = {name: json.loads((out / f).read_text())
-           for name, f in BENCH_FILES.items()}
+    files = {name: json.loads((out / f).read_text())
+             for name, f in BENCH_FILES.items()}
     for name in ("conv_kernels", "attention_kernels"):
-        if not res[name]["ok"]:
+        if not files[name]["ok"]:
             fail(f"the {name} twin's correctness or traffic gate failed")
-    tel = res["telemetry_overhead"]
+    for name in ANALYTIC_BENCHES + ("fig1_quant", "ablation_grad_compress"):
+        if res["verdicts"][name]["ok"] is not True:
+            fail(f"the {name} twin did not reproduce its claim: "
+                 f"{res['verdicts'][name]}")
+    tel = files["telemetry_overhead"]
     print(f"telemetry overhead (host clock, not held here): "
           f"{tel['overhead_pct']:+.2f} % (the bench's own limit "
           f"{tel['threshold_pct']} %); profiler on: "
           f"{tel['profiled_overhead_pct']} %")
+    fig1, full = res["verdicts"]["fig1_quant"], res["fig1_full_width"]
+    for what, r in (("bench size", fig1), ("full width", full)):
+        print(f"fig1_quant at {what} {r['size']}: SNR gain "
+              f"{r['snr_gain_db']:+.2f} dB, logit correlations " + ", ".join(
+                  f"{k.strip()} {v:.4f}" for k, v in r["logit_corr"].items())
+              + f": {'REPRODUCED' if r['ok'] else 'FAIL'}")
+    if not all(np.isfinite(list(full["logit_corr"].values()))):
+        fail(f"fig1_quant at full width: correlations {full['logit_corr']}")
+    abl = res["verdicts"]["ablation_grad_compress"]
+    print(f"ablation ({abl['steps']} steps a mode): final losses "
+          + ", ".join(f"{m} {v:.4f}" for m, v in abl["final_loss"].items())
+          + f"; EF gap {abl['ef_gap']:+.4f} nats; seconds "
+          + ", ".join(f"{m} {v:.2f}" for m, v in abl["seconds"].items()))
+    res["files"] = files
     return res
 
 
@@ -3621,5 +3716,6 @@ if __name__ == "__main__":
               "--train-gemma": train_gemma_check,
               "--wkv6-times": wkv6_times_check,
               "--profiled-loops": profiled_loops_check,
+              "--benches": benches_check,
               "--autotune": autotune_check}.get(
                   " ".join(sys.argv[1:]), main)())

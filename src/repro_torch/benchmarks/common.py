@@ -1,6 +1,7 @@
 """Shared plumbing of the bench twins (the counterpart of the JAX package's
 `benchmarks/common.py`): `timed`, `write_json`, `regression_report`,
-`fmt_table`, a device timer and the card's peak rates."""
+`fmt_table`, a device timer and the card's peak rates (from
+`repro_torch.analysis.roofline`)."""
 
 from __future__ import annotations
 
@@ -10,13 +11,13 @@ from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[3]
+# the card's peaks, defined once in `analysis.roofline`: HBM3, dense bf16 on
+# the tensor cores, fp32 on the CUDA cores
+from repro_torch.analysis.roofline import HBM_BW as PEAK_HBM_BYTES
+from repro_torch.analysis.roofline import PEAK_FLOPS as PEAK_BF16_FLOPS
+from repro_torch.analysis.roofline import PEAK_FP32_FLOPS  # noqa: F401
 
-# H100 SXM peaks from NVIDIA's data sheet: HBM3, dense bf16 on the tensor
-# cores, fp32 on the CUDA cores
-PEAK_HBM_BYTES = 3.35e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
+ROOT = Path(__file__).resolve().parents[3]
 
 WINDOWS = 5   # profiler windows a device timing may take before it fails
 

@@ -129,6 +129,19 @@ class ModelConfig:
                     n += rep * (fmul * D * F + F * D)
         return n
 
+    def active_param_count(self) -> int:
+        """MoE: only top_k of n_experts active per token."""
+        if not self.is_moe:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        fmul = 2 if self.ffn in ("swiglu", "geglu") else 1
+        dead = (self.n_experts - self.top_k) * (fmul * D * F + F * D)
+        return self.param_count() - self.n_layers * dead
+
+    def flops_per_token(self) -> float:
+        """~6·N_active per trained token (fwd+bwd)."""
+        return 6.0 * self.active_param_count()
+
     def reduced(self, **over) -> "ModelConfig":
         """A tiny same-family config for CPU smoke tests."""
         kw = dict(

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 try:  # the machine with the card has no JAX: only the cuda test runs there
     import jax
     import jax.numpy as jnp

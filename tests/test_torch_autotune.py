@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 try:  # the machine with the card has no JAX: only the cuda test runs there
     from repro.kernels import autotune as jautotune
 except ImportError:

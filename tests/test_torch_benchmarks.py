@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 try:  # the machine with the card has no JAX: the JAX comparison skips
     from repro.kernels import log_conv2d as jlc
 except ImportError:

@@ -8,7 +8,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 pytest.importorskip("jax")
 
 from repro.core import accelerator as jacc  # noqa: E402

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports `jax` or the JAX package `repro`; and its entry
-points run on the card unless the caller asks for the CPU."""
+`chip_smoke.py`, imports `jax`, the JAX package `repro` or the JAX
+package's top-level `benchmarks`; and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -11,6 +12,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
@@ -37,7 +39,12 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert "kernel_profile.py" in obs
     benches = {p.name for p in PORT_FILES if p.parent.name == "benchmarks"}
     assert {"common.py", "conv_kernels.py", "attention_kernels.py",
-            "telemetry_overhead.py", "run.py"} <= benches
+            "telemetry_overhead.py", "run.py", "fig1_quant.py",
+            "fig17_pe_cost.py", "fig19_utilization.py",
+            "fig20_throughput.py", "table2_comparison.py",
+            "table3_latency.py", "ablation_grad_compress.py"} <= benches
+    analysis = {p.name for p in PORT_FILES if p.parent.name == "analysis"}
+    assert {"roofline.py", "report.py"} <= analysis
     by_dir = {d: {p.name for p in PORT_FILES if p.parent.name == d}
               for d in ("data", "training", "runtime", "launch", "examples")}
     assert "pipeline.py" in by_dir["data"]
@@ -50,23 +57,27 @@ def test_port_sources_import_neither_jax_nor_repro():
     for path in PORT_FILES:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                (path, mod)
 
 
 def test_port_imports_with_jax_blocked():
     """Import every module of the port (and chip_smoke.py) in a fresh
-    interpreter in which `jax` and `repro` cannot be imported."""
+    interpreter in which `jax`, `repro` and `benchmarks` cannot be
+    imported."""
     mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
             .removesuffix(".__init__")
             for p in PORT_FILES if p.name != "chip_smoke.py"]
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['benchmarks'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "bad = [m for m, v in sys.modules.items() if v is not None and\n"
-            "       m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "       m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+            "                               'benchmarks')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))

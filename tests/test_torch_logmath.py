@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 
 from repro.core import logmath as jlm  # noqa: E402
 from repro_torch.core import logmath as tlm  # noqa: E402

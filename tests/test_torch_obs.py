@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 try:  # the machine with the card has no JAX: the cross-package test skips
     import jax.numpy as jnp
     from repro.core.logquant import quantize_tensor as jquantize

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 jax = pytest.importorskip("jax")
 
 from repro.core import pe_grid as jpg  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

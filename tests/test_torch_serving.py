@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 jax = pytest.importorskip("jax")
 
 from repro.configs.registry import get_config as jget  # noqa: E402
