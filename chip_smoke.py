@@ -260,9 +260,22 @@ goes wrong:
      of the heuristic's, the packaged and the winning knobs and of the
      library call; the split tickets read zero after each; (d) each net's
      forward ms and busy ms with the packaged tier and with it emptied,
-     printed.
+     printed;
+ 23. the mesh path (`models/sharding.py`, `launch/steps.py`), in a process
+     of its own (``chip_smoke.py --mesh``: it starts NCCL): gemma-2b at
+     `launch/serve.py`'s defaults (full width and depth, packed) on a 1x1
+     NCCL ``("data", "model")`` mesh, its params placed as DTensors by
+     `param_shardings`: (a) `build_prefill_step` on 4 prompts of 8 tokens
+     and 16 `build_decode_step` calls, every kernel reached through
+     `local_map` on its shard, B2 at 126 and B3 at 18 launches a forward;
+     the logits against the same steps on plain tensors without a mesh in
+     the same process (bit for bit, else within 0.02 * (max|l| + 1), the
+     difference printed); (b) the decode step's host-clock ms, busy ms
+     (`torch.profiler`) and idle share with the mesh and without it;
+     (c) `make_production_mesh()` on this one-card world raises, naming
+     256.
 
-Phases 5, 9, 12, 14, 15, 16, 17 and 22(a) drive the main paths: the
+Phases 5, 9, 12, 14, 15, 16, 17, 22(a) and 23(a) drive the main paths: the
 kernels' launch counts are set to 0 just before each and read just after.
 The autotune user tier is an empty file of the run's own, so every main
 path launches the packaged tier's knobs.
@@ -3475,6 +3488,135 @@ def _forwards_with_without(dev, nets: dict, x) -> dict:
     return out
 
 
+MESH_PROMPT, MESH_DECODES = 8, 16   # 23(a): prompt tokens, decode steps
+
+
+def mesh_check() -> int:
+    """``chip_smoke.py --mesh``: phase 23 in a process of its own (it starts
+    an NCCL group); prints ``{"mesh": {...}}`` last."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import mesh as launch_mesh
+    dev = torch.device("cuda", 0)
+    with launch_mesh.process_group(dev):
+        res = _mesh_path(dev, launch_mesh)
+    print(json.dumps({"mesh": res}, default=str))
+    return 0
+
+
+def _mesh_path(dev, launch_mesh) -> dict:
+    """23 (a)–(c) inside a started process group (see the module
+    docstring)."""
+    from repro_torch.configs import base
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding, transformer
+    from repro_torch.serving.quantize import quantize_params
+    args = _serve_args(LM_ARCH)
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg,
+                              attn_impl="cuda", quant="logq6")
+    B, S = args.max_batch, args.max_len
+    base.SHAPES["mesh_prefill"] = dict(seq_len=S, global_batch=B,
+                                       step="prefill")
+    base.SHAPES["mesh_decode"] = dict(seq_len=S, global_batch=B,
+                                      step="decode")
+    mesh = launch_mesh.make_host_mesh(device=dev)
+    res = {"mesh": sharding.mesh_shape(mesh),
+           "backend": torch.distributed.get_backend(), "arch": cfg.name,
+           "batch": B, "cache_len": S, "prompt": MESH_PROMPT,
+           "decodes": MESH_DECODES}
+    if res["mesh"] != {"data": 1, "model": 1} or res["backend"] != "nccl":
+        fail(f"phase 23 wants a 1x1 NCCL mesh, got {res['mesh']} on "
+             f"{res['backend']}")
+    pf, _, (psh, bsh) = steps.build_prefill_step(cfg, "mesh_prefill", mesh)
+    df, _, (_, _, dsh) = steps.build_decode_step(cfg, "mesh_decode", mesh)
+    params = quantize_params(transformer.init_params(cfg, args.seed,
+                                                     device=dev))
+    placed = sharding.place(params, psh)
+    if not sharding.is_sharded(placed["segments"]["seg0"]["l0"]["attn"]
+                               ["wq"].packed):
+        fail("phase 23: the params were not placed as DTensors")
+    gen = torch.Generator().manual_seed(SEED)
+    prompt = torch.randint(1, cfg.vocab, (B, MESH_PROMPT), generator=gen)
+    nexts = torch.randint(1, cfg.vocab, (MESH_DECODES, B, 1), generator=gen)
+
+    def run(p, on_mesh: bool):
+        """Prefill + decodes → (last logits, the decode logits, a decode
+        step of the final cache for timing)."""
+        place = (lambda t, sh: sharding.place(t, sh)) if on_mesh \
+            else (lambda t, sh: t)
+        sharding.set_mesh(mesh if on_mesh else None)
+        _, cache = pf(p, place({"tokens": prompt.to(dev)}, bsh))
+        outs = []
+        for t in range(MESH_DECODES):
+            y, cache = df(p, cache, place({"tokens": nexts[t].to(dev)}, dsh))
+            outs.append(sharding.full(y).float())
+        batch = place({"tokens": nexts[-1].to(dev)}, dsh)
+        return torch.stack(outs), lambda: df(p, cache, batch)
+
+    wrappers = _wrappers()
+    plain_logits, plain_step = run(params, False)
+    torch.cuda.synchronize()
+    # the main path: the counts are zeroed just before it and read just after
+    for w in wrappers.values():
+        w.launches = 0
+    mesh_logits, mesh_step = run(placed, True)
+    torch.cuda.synchronize()
+    launches = {op: w.launches for op, w in wrappers.items()}
+    per_fwd = launches_per_forward(cfg)
+    fwd = 1 + MESH_DECODES
+    want = {op: per_fwd[op] * fwd for op in wrappers}
+    res.update(launches=launches, expected_launches=want,
+               launches_per_forward={op: n / fwd
+                                     for op, n in launches.items()})
+    print(f"mesh path: {cfg.name} on {res['mesh']} ({res['backend']}), "
+          f"{fwd} forwards; kernel launches {launches}, expected {want}")
+    if launches != want:
+        fail("phase 23: kernel launch counts on the mesh path do not match "
+             "its forwards")
+    diff = float((mesh_logits - plain_logits).abs().max())
+    mx = float(plain_logits.abs().max())
+    res.update(logit_max_abs_diff=diff, max_abs_logit=mx,
+               bit_identical=bool(torch.equal(mesh_logits, plain_logits)),
+               tol=0.02 * (mx + 1),
+               finite=bool(torch.isfinite(mesh_logits).all()))
+    print(f"mesh logits against the plain run over {MESH_DECODES} decode "
+          f"steps: bit-identical {res['bit_identical']}, max diff {diff:.3e}"
+          f" (max|l| {mx:.3f}, tol {res['tol']:.3e})")
+    if not res["finite"] or diff > res["tol"]:
+        fail("phase 23: the mesh path's logits disagree with the plain run")
+
+    # (b) the decode step with and without the mesh, host clock and busy
+    for name, step, on_mesh in (("plain", plain_step, False),
+                                ("mesh", mesh_step, True)):
+        sharding.set_mesh(mesh if on_mesh else None)
+        ms = 1e3 * _host_time(step, 10)
+        prof = profile_forward(step)
+        res[f"decode_{name}"] = {
+            "step_ms": ms, "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": (1 - prof["device_busy_ms"] / ms
+                           if prof["device_kernels"] else None),
+            "device_kernels": prof["device_kernels"],
+            "top_kernels_ms": prof["top_kernels_ms"]}
+    sharding.set_mesh(None)
+    print(f"decode step ({B} rows, cache {S}) on {card_line()}: plain "
+          f"{res['decode_plain']}; mesh {res['decode_mesh']}")
+
+    # (c) the production mesh refuses this world
+    try:
+        launch_mesh.make_production_mesh(device=dev)
+    except RuntimeError as e:
+        res["production_error"] = str(e)
+    else:
+        fail("phase 23: make_production_mesh() built a mesh on one card")
+    if "256" not in res["production_error"]:
+        fail(f"phase 23: the production mesh's error does not name 256: "
+             f"{res['production_error']}")
+    print(f"make_production_mesh() on one card: {res['production_error']}")
+    return res
+
+
 def autotune_check() -> int:
     """``chip_smoke.py --autotune``: phase 22 in a fresh process (its
     forwards are profiled, and late in a long process the `torch.profiler`
@@ -3594,6 +3736,8 @@ def main() -> int:
     twins = phase_example_twins(dev)
     tier.cleanup()
     tuned = _subprocess("--autotune")
+    torch.cuda.empty_cache()
+    meshed = _subprocess("--mesh")
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "heuristic_ms", "event_ms", "plain_ms",
@@ -3619,6 +3763,8 @@ def main() -> int:
     by_path = {op: {a: r["launches"][op] for a, r in lm_paths.items()
                     if r["launches"][op]}
                for op in ("log_matmul", "attention")}
+    for op in ("log_matmul", "attention"):
+        by_path[op][f"{LM_ARCH} on the 1x1 mesh"] = meshed["launches"][op]
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
             "src/repro/kernels/log_conv2d.py:491",
@@ -3685,7 +3831,7 @@ def main() -> int:
          "example": example, "recurrentgemma_slice": rg,
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
          "profiler": prof, "benches": benches, "training": training,
-         "example_twins": twins, "autotune": tuned,
+         "example_twins": twins, "autotune": tuned, "mesh": meshed,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -3697,8 +3843,8 @@ def main() -> int:
           f"times over one {RWKV_ARCH} decode step (24 calls, device time); "
           f"log_matmul "
           f"and attention launches are those of the four LM main "
-          f"paths (by path: {by_path}); log_conv2d launches those of "
-          f"the CNN slice, whose convs its times cover (the oracle's and the "
+          f"paths and gemma-2b's mesh path (by path: {by_path}); "
+          f"log_conv2d launches those of the CNN slice, whose convs its times cover (the oracle's and the "
           f"example's in launches_by_path: {conv_launches}); "
           f"profiler_calls are the kernel-dispatch profiler's calls of each "
           f"op in phase 18 (the four nets, gemma-2b's serve run, wkv6)")
@@ -3717,5 +3863,6 @@ if __name__ == "__main__":
               "--wkv6-times": wkv6_times_check,
               "--profiled-loops": profiled_loops_check,
               "--benches": benches_check,
-              "--autotune": autotune_check}.get(
+              "--autotune": autotune_check,
+              "--mesh": mesh_check}.get(
                   " ".join(sys.argv[1:]), main)())

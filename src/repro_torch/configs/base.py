@@ -2,10 +2,11 @@
 
 Counterpart of `repro.configs.base` with torch dtypes, the assigned input
 shapes (`SHAPES`, `cell_is_runnable`) and `input_specs`, whose stand-ins
-are tensors on the ``meta`` device.  The JAX package's scan and sharding
-knobs (`scan_unroll`, `attn_shard`, `residual_shard`, `sp_style`) are not
-carried over: the port runs eagerly on one card (ROADMAP.md queue A,
-item 17).
+are tensors on the ``meta`` device.  The sharding knobs (`attn_shard`,
+`residual_shard`, `sp_style`) are JAX's, with its defaults and meanings
+(`models/sharding.py` reads them under a mesh); the scan knob
+`scan_unroll` is not carried over: only the dry run's accounting compiles
+read it (ROADMAP.md queue A, item 17, part 2).
 """
 
 from __future__ import annotations
@@ -63,6 +64,20 @@ class ModelConfig:
     # resolves); the blockwise version's kv chunk and math knobs
     attn_impl: str = "auto"
     attn_block_k: int = 1024
+    # --- sharding knobs (baseline = paper-faithful defaults) -------------
+    # "none": q/k/v keep the projection's column sharding.
+    # "heads": explicit [batch, _, heads→model, _] constraint after the
+    #         projections and before wo (Megatron-style TP attention).
+    # "seq":  queries sharded over model on the sequence dim, k/v gathered
+    #         (cheap for MQA/GQA) — attention math fully local per shard.
+    attn_shard: str = "none"
+    # "seq": residual stream sharded [batch, seq→model, _] between blocks —
+    # Megatron sequence parallelism.
+    residual_shard: str = "none"
+    # with residual_shard="seq": "fsdp" leaves the FFN input as it comes
+    # (the weights are gathered), "megatron" constrains the block inputs to
+    # gathered activations so weights stay TP-sharded.
+    sp_style: str = "fsdp"
     gqa_broadcast: bool = False      # einsum-broadcast GQA (no kv repeat)
     attn_acc_dtype: Any = torch.float32  # blockwise attention math dtype
     # recompute each repeated unit in the backward pass (training only;

@@ -23,6 +23,13 @@ While the kernel-dispatch profiler is on (`obs.kernel_profile`), every op
 goes through `kernel_profile.dispatch` with its shape key and analytic
 bytes, in the formats of `repro.kernels.ops`; while it is off, neither is
 computed.
+
+Under a mesh (`models.sharding`), an op given DTensor operands reaches its
+kernel through `local_map`, with placements written out per op
+(`_sharded_log_matmul`, `_sharded_attention`, `_sharded_wkv6`,
+`_sharded_conv2d`): each rank's kernel runs on its own shard, never on a
+gathered global copy, and on a CPU rank the plain version runs under the
+same placements.  On plain tensors nothing of this runs.
 """
 
 from __future__ import annotations
@@ -35,8 +42,12 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        quantize_tensor)
+from repro_torch.models import sharding as _sharding
 from repro_torch.obs import kernel_profile as _kprof
 from . import autotune as _autotune
 from .autotune import attention_key, conv_key
@@ -80,6 +91,8 @@ def resolve_impl(op: str, impl: str = "auto", device=None) -> str:
 
 def log_matmul(x, qt: QuantizedTensor, *, impl: str = "auto"):
     """x: [..., K] @ dequant(qt [K, N]) → [..., N] in x's dtype."""
+    if _sharding.is_sharded(x, qt.packed, qt.scale):
+        return _sharded_log_matmul(x, qt, impl)
     impl = resolve_impl("log_matmul", impl, x.device)
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
@@ -243,6 +256,10 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
     if not isinstance(qt, QuantizedTensor):
         qt = quantize_tensor(torch.as_tensor(qt, device=x.device),
                              qcfg or LogQuantConfig())
+    if _sharding.is_sharded(x, qt.packed, qt.scale):
+        return _sharded_conv2d(x, qt, dict(
+            stride=stride, padding=padding, groups=groups, impl=impl,
+            out_dtype=out_dtype, config=config, autotune=autotune))
     impl = resolve_impl("conv2d", impl, x.device)
     explicit = _conv_config_dict(config)
     packed, lane = qt.packed, None
@@ -478,6 +495,10 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     config = _translate_legacy_attn_kwargs(
         config, dict(block_k=block_k, acc_dtype=acc_dtype,
                      gqa_broadcast=gqa_broadcast))
+    if _sharding.is_sharded(q, k, v):
+        return _sharded_attention(q, k, v, q_offset, k_offset, dict(
+            causal=causal, window=window, scale=scale, impl=impl,
+            config=config, autotune=autotune))
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -539,6 +560,9 @@ def wkv6(r, k, v, logw, u, state=None, *, impl: str = "auto",
     ``config=WkvConfig(chunk=…)`` is the spec'd surface; ``chunk=`` stays
     as an alias that beats it.  "cuda" and "blockwise" return o in r's
     dtype, "ref" in fp32 (as the JAX oracle does)."""
+    if _sharding.is_sharded(r, k, v, logw, u, state):
+        return _sharded_wkv6(r, k, v, logw, u, state,
+                             dict(impl=impl, config=config, chunk=chunk))
     impl = resolve_impl("wkv6", impl, r.device)
     chunk = chunk if chunk is not None else (config or WkvConfig()).chunk
     if impl == "ref":
@@ -564,3 +588,128 @@ def wkv6(r, k, v, logw, u, state=None, *, impl: str = "auto",
     return _kprof.dispatch("wkv6", impl, key, traffic, call,
                            traced=_kprof.is_traced(r, k, v, logw, u, state),
                            device=r.device)
+
+
+# ---------------------------------------------------------------------------
+# under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh_of(*xs):
+    return next(x.device_mesh for x in xs if _sharding.is_sharded(x))
+
+
+def _model_dim(mesh):
+    names = mesh.mesh_dim_names
+    return names.index("model") if "model" in names else None
+
+
+def _batch_placements(x, mesh) -> list:
+    """Dim 0 (the batch) kept ``Shard(0)`` on the batch axes (pod, data)
+    where ``x`` has it there, every other mesh dim replicated."""
+    return [Shard(0) if (name in ("pod", "data")
+                         and x.placements[i] == Shard(0)) else Replicate()
+            for i, name in enumerate(mesh.mesh_dim_names)]
+
+
+def _on_model(pl: list, m, placement) -> list:
+    pl = list(pl)
+    if m is not None:
+        pl[m] = placement
+    return pl
+
+
+def _sharded_log_matmul(x, qt, impl):
+    """B2 on each rank's shard.  The codes are gathered over the batch axes
+    (FSDP) and keep their ``model`` split: an ``(F, T)`` leaf's codes are
+    ``Shard(1)`` (x replicated on ``model``, the output sharded on its last
+    dim), a ``(T, F)`` leaf's ``Shard(0)`` (x ``Shard(-1)``, a ``Partial``
+    output); codes replicated on ``model`` give a replicated output."""
+    mesh = _mesh_of(x, qt.packed, qt.scale)
+    x, packed, scale = (_sharding.replicated(t, mesh)
+                        for t in (x, qt.packed, qt.scale))
+    m, rep = _model_dim(mesh), [Replicate()] * mesh.ndim
+    kind = packed.placements[m] if m is not None else Replicate()
+    column = kind == Shard(packed.ndim - 1)
+    row = kind == Shard(packed.ndim - 2)
+    pl_x = _batch_placements(x, mesh)
+    pl_out = _on_model(pl_x, m, Shard(x.ndim - 1) if column
+                       else Partial() if row else Replicate())
+    pl_x = _on_model(pl_x, m, Shard(x.ndim - 1) if row else Replicate())
+    pl_codes = _on_model(rep, m, kind if (column or row) else Replicate())
+    per_channel = scale.ndim >= 1 and scale.shape[-1] == packed.shape[-1]
+    pl_scale = _on_model(rep, m, Shard(scale.ndim - 1)
+                         if column and per_channel else Replicate())
+
+    def local(xl, pl, sl):
+        return log_matmul(xl, QuantizedTensor(pl, sl, qt.cfg,
+                                              tuple(pl.shape)), impl=impl)
+    return local_map(local, out_placements=pl_out,
+                     in_placements=(pl_x, pl_codes, pl_scale),
+                     redistribute_inputs=True)(x, packed, scale)
+
+
+def _offset(off, mesh, pl_batch):
+    """A per-row offset tensor [B] as a DTensor split like the batch; an
+    int as is."""
+    if not torch.is_tensor(off):
+        return off, None
+    return _sharding.replicated(off, mesh), pl_batch
+
+
+def _sharded_attention(q, k, v, q_offset, k_offset, kw):
+    """B3 on each rank's shard: the batch as q has it on (pod, data), the
+    heads of q and k/v ``Shard(2)`` on ``model`` when both head counts
+    divide it, else replicated."""
+    mesh = _mesh_of(q, k, v)
+    q, k, v = (_sharding.replicated(t, mesh) for t in (q, k, v))
+    m = _model_dim(mesh)
+    msz = mesh.size(m) if m is not None else 1
+    heads = q.shape[2] % msz == 0 and k.shape[2] % msz == 0
+    pl_b = _batch_placements(q, mesh)
+    pl = _on_model(pl_b, m, Shard(2) if heads else Replicate())
+    qo, pl_qo = _offset(q_offset, mesh, pl_b)
+    ko, pl_ko = _offset(k_offset, mesh, pl_b)
+
+    def local(ql, kl, vl, qol, kol):
+        return attention(ql, kl, vl, q_offset=qol, k_offset=kol, **kw)
+    return local_map(local, out_placements=pl,
+                     in_placements=(pl, pl, pl, pl_qo, pl_ko),
+                     redistribute_inputs=True)(q, k, v, qo, ko)
+
+
+def _sharded_wkv6(r, k, v, logw, u, state, kw):
+    """B4 on each rank's shard: the batch as r has it on (pod, data), the
+    heads ``Shard`` on ``model`` (dim 2 of r/k/v/logw/o, 0 of u, 1 of the
+    state) when they divide it, else replicated."""
+    mesh = _mesh_of(r, k, v, logw, u, state)
+    r, k, v, logw, u, state = (_sharding.replicated(t, mesh)
+                               for t in (r, k, v, logw, u, state))
+    m = _model_dim(mesh)
+    heads = m is None or r.shape[2] % mesh.size(m) == 0
+    pl_b = _batch_placements(r, mesh)
+    pl_x = _on_model(pl_b, m, Shard(2) if heads else Replicate())
+    pl_s = _on_model(pl_b, m, Shard(1) if heads else Replicate())
+    pl_u = _on_model([Replicate()] * mesh.ndim, m,
+                     Shard(0) if heads else Replicate())
+
+    def local(rl, kl, vl, wl, ul, sl):
+        return wkv6(rl, kl, vl, wl, ul, sl, **kw)
+    return local_map(local, out_placements=(pl_x, pl_s),
+                     in_placements=(pl_x, pl_x, pl_x, pl_x, pl_u,
+                                    None if state is None else pl_s),
+                     redistribute_inputs=True)(r, k, v, logw, u, state)
+
+
+def _sharded_conv2d(x, qt, kw):
+    """B1 replicated on every rank (the CNN has no sharding constraint)."""
+    mesh = _mesh_of(x, qt.packed, qt.scale)
+    x, packed, scale = (_sharding.replicated(t, mesh)
+                        for t in (x, qt.packed, qt.scale))
+    rep = [Replicate()] * mesh.ndim
+
+    def local(xl, pl, sl):
+        return conv2d(xl, QuantizedTensor(pl, sl, qt.cfg, qt.shape,
+                                          qt.layout, qt.layout_meta), **kw)
+    return local_map(local, out_placements=rep, in_placements=(rep,) * 3,
+                     redistribute_inputs=True)(x, packed, scale)

@@ -1,16 +1,25 @@
 """Serving CLI: batched requests through the continuous-batching engine,
-on packed log-code weights.
+on packed log-code weights, on a mesh.
 
     python -m repro_torch.launch.serve --arch gemma-2b          # on the card
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve    # 4 GPUs
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --reduced --device cpu
 
-Counterpart of `repro.launch.serve` (the mesh flags wait for ROADMAP.md
-queue A, item 17).  Every token arch is served (`--arch`; also
+Counterpart of `repro.launch.serve`.  `main` starts the process group of
+the device (`launch.mesh.process_group`: NCCL on the card, gloo on the
+CPU; torchrun's ranks when present, else one rank) and installs the host
+mesh, (1, world) ``("data", "model")``, or with ``--production`` the
+16×16 production mesh, which needs a world of 256 ranks.  On a mesh of
+more than one device the packed parameters are placed as DTensors by
+`models.sharding.param_shardings` and every rank runs the engine on its
+shards (the engine's cache stays whole on every rank); on a one-device
+mesh they stay plain tensors, so that run is the plain one, kernel
+launches included.  Every token arch is served (`--arch`; also
 granite-moe-1b-a400m, gemma3-1b, qwen1.5-4b, llama3-405b); the archs fed
 with embeddings (musicgen-large, qwen2-vl-2b) are refused.  The weights are
 random, from ``--seed``, and are packed by `serving.quantize.quantize_params`
@@ -31,7 +40,9 @@ import time
 import numpy as np
 
 from repro_torch.configs.registry import ARCH_NAMES, get_config
-from repro_torch.models import transformer
+from repro_torch.core.device import resolve_device
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.models import sharding, transformer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serving.quantize import quantize_params
@@ -41,6 +52,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_NAMES), default="gemma-2b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--production", action="store_true",
+                    help="the 16x16 production mesh (a world of 256 ranks)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -63,12 +76,17 @@ def parse_args(argv=None):
 
 def build_engine(args) -> ServeEngine:
     """Random weights from ``args.seed`` on ``args.device``, packed, behind
-    an engine with the arguments' batch, prompt and cache sizes."""
+    an engine with the arguments' batch, prompt and cache sizes; placed as
+    DTensors when the installed mesh has more than one device."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     params = quantize_params(
         transformer.init_params(cfg, args.seed, device=args.device))
+    mesh = sharding.get_mesh()
+    if mesh is not None and mesh.size() > 1:
+        params = sharding.place(params,
+                                sharding.param_shardings(mesh, params))
     return ServeEngine(cfg, params, EngineConfig(
         max_batch=args.max_batch, max_prompt=args.max_prompt,
         max_len=args.max_len, telemetry=args.telemetry))
@@ -91,6 +109,19 @@ def make_requests(args, vocab: int) -> list[Request]:
 
 def main(argv=None):
     args = parse_args(argv)
+    device = resolve_device(args.device)
+    with launch_mesh.process_group(device):
+        mesh = (launch_mesh.make_production_mesh(device=device)
+                if args.production
+                else launch_mesh.make_host_mesh(device=device))
+        sharding.set_mesh(mesh)
+        try:
+            return _serve(args, mesh)
+        finally:
+            sharding.set_mesh(None)
+
+
+def _serve(args, mesh):
     engine = build_engine(args)
     for req in make_requests(args, engine.cfg.vocab):
         engine.submit(req)
@@ -100,7 +131,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     toks = sum(len(r.output) for r in done)
     print(f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks/dt:.1f} tok/s) on {engine.device}  stats={engine.stats}")
+          f"({toks/dt:.1f} tok/s) on {engine.device} "
+          f"mesh={sharding.mesh_shape(mesh)}  stats={engine.stats}")
     for r in done[: 4]:
         print(f"  req {r.uid}: prompt[:4]={list(r.prompt[:4])} "
               f"→ {r.output[:8]}…")

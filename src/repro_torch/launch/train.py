@@ -5,16 +5,23 @@
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
         --device cpu
 
-Counterpart of `repro.launch.train` on one device: the card unless
-``--device`` names another.  Restart the command after a crash and it
-resumes from the latest checkpoint under ``--ckpt-dir``
+Counterpart of `repro.launch.train`: on the card unless ``--device`` names
+another.  `main` starts the process group of the device
+(`launch.mesh.process_group`: NCCL on the card, gloo on the CPU;
+torchrun's ranks when present, else one rank) and installs the host mesh,
+(1, world) ``("data", "model")``, or with ``--production`` the 16×16
+production mesh, which needs a world of 256 ranks.  On a mesh of more
+than one device the train state is placed as DTensors
+(`launch.steps.state_shardings`) and a restart restores it onto the
+current mesh, whatever mesh wrote it (`load_checkpoint(shardings=)`); the
+batch reaches every rank whole.  On a one-device mesh the state stays
+plain tensors, so that run is the plain one.  Restart the command after a
+crash and it resumes from the latest checkpoint under ``--ckpt-dir``
 (`runtime/checkpoint.py`).  The config carries ``attn_impl="blockwise"``
 (the JAX package's default), so attention and the RWKV recurrence run
 their plain versions, which autograd differentiates: the CUDA kernels
-have no backward.  ``--production`` (the production mesh) and a restart
-on another device count belong to the multi-device part of the port
-(ROADMAP.md queue A, item 17).  On the card the closing lines give the
-step time's p50 and p99, tokens/s at the p50 and the peak device memory.
+have no backward.  On the card the closing lines give the step time's p50
+and p99, tokens/s at the p50 and the peak device memory.
 """
 
 from __future__ import annotations
@@ -25,8 +32,11 @@ import dataclasses
 import torch
 
 from repro_torch.configs.registry import ARCH_NAMES, get_config
+from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
-from repro_torch.models import transformer
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.launch.steps import state_shardings
+from repro_torch.models import sharding, transformer
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.monitor import HeartbeatMonitor
@@ -41,8 +51,7 @@ def parse_args(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized config of the same family")
     ap.add_argument("--production", action="store_true",
-                    help="the production mesh (not ported: ROADMAP.md "
-                         "queue A, item 17)")
+                    help="the 16x16 production mesh (a world of 256 ranks)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -64,11 +73,21 @@ def parse_args(argv=None):
 def run(args) -> dict:
     """Train as the arguments say → {"history", "step_s": {"p50", "p99",
     "count"}, "tokens_per_s" (at the p50), "peak_bytes" (the card's peak
-    allocation, None elsewhere)}."""
-    if args.production:
-        raise NotImplementedError(
-            "--production needs the multi-device mesh, ROADMAP.md queue A, "
-            "item 17")
+    allocation, None elsewhere)}, on the mesh the device's process group
+    gives (`main`'s docstring)."""
+    device = resolve_device(args.device)
+    with launch_mesh.process_group(device):
+        mesh = (launch_mesh.make_production_mesh(device=device)
+                if args.production
+                else launch_mesh.make_host_mesh(device=device))
+        sharding.set_mesh(mesh)
+        try:
+            return _run(args, mesh)
+        finally:
+            sharding.set_mesh(None)
+
+
+def _run(args, mesh) -> dict:
     cfg = dataclasses.replace(get_config(args.arch), attn_impl="blockwise")
     if args.reduced:
         cfg = cfg.reduced()
@@ -78,7 +97,7 @@ def run(args) -> dict:
     params = transformer.init_params(cfg, args.seed, device=args.device)
     device = params["final_norm"]["scale"].device
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"device={device}")
+          f"device={device} mesh={sharding.mesh_shape(mesh)}")
 
     loader = ShardedLoader(DataConfig(
         seq_len=args.seq, global_batch=args.batch, vocab=cfg.vocab,
@@ -97,10 +116,18 @@ def run(args) -> dict:
     start_step, state = 0, None
     monitor = HeartbeatMonitor(["host0"])
 
+    state_sh = None
+    if mesh.size() > 1:
+        state_sh = state_shardings(mesh, params, tcfg.opt, args.grad_compress)
+        state = sharding.place(init_train_state(params, tcfg), state_sh)
+        params = state["params"]
+
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
         if mgr.latest_step() is not None:
-            state, start_step = mgr.restore(init_train_state(params, tcfg))
+            template = state if state is not None \
+                else init_train_state(params, tcfg)
+            state, start_step = mgr.restore(template, shardings=state_sh)
             params = state["params"]
             print(f"resumed from step {start_step}")
         hooks.append(mgr.hook(args.ckpt_every))

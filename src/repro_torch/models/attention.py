@@ -1,7 +1,8 @@
 """GQA/MQA attention mixer with RoPE/M-RoPE, QKV bias, windows and KV cache.
 
-Counterpart of `repro.models.attention` (the JAX package's sharding
-constraints are dropped: on one card they change no number).
+Counterpart of `repro.models.attention`, with its sharding constraints
+(``cfg.attn_shard`` "heads" and "seq"; `models.sharding.constrain`, a
+no-op on plain tensors).
 
 Cache layouts:
   * global ('attn') layers: [B, max_len, Hkv, hd], written at the index.
@@ -22,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops
+from . import sharding
 from .layers import _init, apply_rope, dense
 
 
@@ -62,6 +64,17 @@ def _qkv(p, h, cfg, positions):
     q = proj("wq", "bq").reshape(B, T, cfg.n_heads, cfg.head_dim)
     k = proj("wk", "bk").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
     v = proj("wv", "bv").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.attn_shard == "heads":
+        # Megatron-style TP: heads over the model axis, head_dim whole
+        q = sharding.constrain(q, ("batch", None, "tensor", None))
+        k = sharding.constrain(k, ("batch", None, "tensor", None))
+        v = sharding.constrain(v, ("batch", None, "tensor", None))
+    elif cfg.attn_shard == "seq" and T > 1:
+        # sequence-parallel attention: queries sharded over model on T,
+        # k/v whole (cheap gather for MQA/GQA small kv_dim)
+        q = sharding.constrain(q, ("batch", "tp_seq", None, None))
+        k = sharding.constrain(k, ("batch", None, None, None))
+        v = sharding.constrain(v, ("batch", None, None, None))
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
@@ -86,17 +99,30 @@ def attention_mixer(p, h, cfg, *, kind="attn", positions, cache=None,
                             impl=cfg.attn_impl, config=acfg)
         if cache is not None:  # prefill
             S = cache["k"].shape[1]
-            if S >= T:  # cache holds the whole chunk
-                cache["k"][:, :T] = k
-                cache["v"][:, :T] = v
+            if sharding.is_sharded(cache["k"]):
+                # shard by shard; the chunk's token p lands in slot p, or
+                # p % S in a ring smaller than the chunk
+                pos = torch.arange(max(T - S, 0), T, device=h.device)
+                rows = torch.arange(B, device=h.device)[:, None].expand(
+                    B, pos.numel())
+                cols = (pos % S)[None].expand(B, pos.numel())
+                sharding.write_rows(cache["k"], rows, cols,
+                                    sharding.full(k)[:, pos])
+                sharding.write_rows(cache["v"], rows, cols,
+                                    sharding.full(v)[:, pos])
+            elif S >= T:  # cache holds the whole chunk
+                cache["k"][:, :T] = sharding.full(k)
+                cache["v"][:, :T] = sharding.full(v)
             else:
                 # ring smaller than the chunk: keep the last S tokens, the
                 # token at position p in slot p % S, where decode looks for
                 # it (the JAX package writes them at slots 0..S-1, which
                 # decode misreads unless S divides T; ROADMAP.md C)
                 slots = (torch.arange(T - S, T, device=h.device)) % S
-                cache["k"][:, slots] = k[:, T - S:].to(cache["k"].dtype)
-                cache["v"][:, slots] = v[:, T - S:].to(cache["v"].dtype)
+                cache["k"][:, slots] = sharding.full(k[:, T - S:]).to(
+                    cache["k"].dtype)
+                cache["v"][:, slots] = sharding.full(v[:, T - S:]).to(
+                    cache["v"].dtype)
 
     else:        # decode one token at absolute position `index`
         S = cache["k"].shape[1]
@@ -106,8 +132,8 @@ def attention_mixer(p, h, cfg, *, kind="attn", positions, cache=None,
         # dynamic_update_slice clamps its start
         slot = index % S if is_ring else index.clamp(0, S - 1)
         rows = torch.arange(B, device=h.device)
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        sharding.write_rows(cache["k"], rows, slot, k[:, 0])
+        sharding.write_rows(cache["v"], rows, slot, v[:, 0])
         dcfg = dataclasses.replace(acfg, block_k=min(cfg.attn_block_k, S))
         if is_ring:
             # unroll the ring into logical order (oldest first): the key at
@@ -128,5 +154,9 @@ def attention_mixer(p, h, cfg, *, kind="attn", positions, cache=None,
                                 window=window, q_offset=index,
                                 impl=cfg.attn_impl, config=dcfg)
 
+    if cfg.attn_shard == "heads":
+        out = sharding.constrain(out, ("batch", None, "tensor", None))
+    elif cfg.attn_shard == "seq" and T > 1:
+        out = sharding.constrain(out, ("batch", "tp_seq", None, None))
     out = out.reshape(B, T, cfg.q_dim)
     return dense({"w": p["wo"]}, out, cfg), cache

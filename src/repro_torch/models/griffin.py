@@ -17,14 +17,16 @@ elementwise steps, no step at T = 1) where JAX runs
 overflow.
 
 State per layer: ``h`` [B, W] and ``conv`` [B, K−1, W], both fp32.  A
-given state is updated in place (``copy_`` into the tensors, which are
-views of the engine's stacked cache) and returned.
+given state is updated in place (`sharding.assign`: ``copy_`` into the
+tensors, which are views of the engine's stacked cache, shard by shard
+for a DTensor) and returned.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import sharding
 from .layers import _gelu, _init
 
 C_RGLRU = 8.0
@@ -109,6 +111,6 @@ def griffin_mixer(p, x, cfg, state=None):
 
     out = (gate * h.to(x.dtype)) @ p["w_out"].to(x.dtype)
     if state is not None:
-        state["h"].copy_(h[:, -1])
-        state["conv"].copy_(conv_carry)
+        sharding.assign(state["h"], h[:, -1])
+        sharding.assign(state["conv"], conv_carry)
     return out, state

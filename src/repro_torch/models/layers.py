@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        fake_log_quant)
 from repro_torch.kernels import ops
+from . import sharding
 
 
 def _init(gen, shape, scale=None, *, lead=(), device=None):
@@ -36,7 +37,8 @@ def dense(p, x, cfg=None):
         y = ops.log_matmul(x, w)
     else:
         if cfg is not None and cfg.quant == "logq6":
-            w = fake_log_quant(w, LogQuantConfig())
+            w = sharding.channelwise(
+                lambda t: fake_log_quant(t, LogQuantConfig()), w)
         y = x @ w.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)

@@ -10,8 +10,9 @@ are dense einsums against one-hots, as in the JAX package; the expert
 products are plain einsums too (no Pallas kernel computes them there, and
 no kernel of the port here).  The expert weights stay fp32 (their names are
 not in `serving.quantize.QUANT_LEAVES`) and are cast to the activation
-dtype on every call, as JAX does.  The JAX package's sharding constraints
-are dropped: on one card they change no number.
+dtype on every call, as JAX does.  The sharding constraints are JAX's:
+groups over the batch axes, experts over ``model`` (expert parallelism);
+`models.sharding.constrain` is a no-op on plain tensors.
 
 Router aux loss = load-balancing loss of Switch/GShard
 (E · Σ_e fraction_tokens_e · mean_prob_e), computed globally.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import sharding
 from .layers import _gelu, _init
 
 # per-group token block for routing; must divide the token count (falls
@@ -101,9 +103,11 @@ def moe_ffn(p, x, cfg, capacity: int | None = None):
     E, N = cfg.n_experts, B * T
     rt = route(p, x.reshape(N, D), cfg, T, capacity)
     xg = x.reshape(rt["onehot"].shape[0], -1, D)
+    xg = sharding.constrain(xg, ("batch", None, None))
 
-    # dispatch: [n_g, E, C, D]
+    # dispatch: [n_g, E, C, D]; groups shard over batch, experts over model
     xe = torch.einsum("gnec,gnd->gecd", rt["dispatch"].to(x.dtype), xg)
+    xe = sharding.constrain(xe, ("batch", "tensor", None, None))
     w1 = p["moe_w1"].to(x.dtype)
     if cfg.ffn in ("swiglu", "geglu"):
         act = F.silu if cfg.ffn == "swiglu" else _gelu
@@ -113,6 +117,7 @@ def moe_ffn(p, x, cfg, capacity: int | None = None):
     else:
         h = _gelu(torch.einsum("gecd,edf->gecf", xe, w1))
     ye = torch.einsum("gecf,efd->gecd", h, p["moe_w2"].to(x.dtype))
+    ye = sharding.constrain(ye, ("batch", "tensor", None, None))
     y = torch.einsum("gnec,gecd->gnd", rt["combine"].to(x.dtype), ye)
 
     # load-balancing aux loss (global)

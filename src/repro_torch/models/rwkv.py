@@ -18,8 +18,9 @@ has no backward and refuses inputs that require grad) and `wkv6_chunked`
 on the CPU.
 
 State per layer: ``x_prev_t`` and ``x_prev_c`` [B, D] fp32 and ``wkv``
-[B, H, K, V] fp32.  A given state is updated in place (``copy_`` into the
-tensors, which are views of the engine's stacked cache) and returned.
+[B, H, K, V] fp32.  A given state is updated in place
+(`sharding.assign`: ``copy_`` into the tensors, which are views of the
+engine's stacked cache, shard by shard for a DTensor) and returned.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from . import sharding
 from .layers import _init, dense
 
 
@@ -124,8 +126,8 @@ def rwkv_time_mix(p, x, cfg, state=None):
 
     out = _mm(o * g, p["wo"])
     if state is not None:
-        state["x_prev_t"].copy_(x[:, -1])
-        state["wkv"].copy_(new_wkv)
+        sharding.assign(state["x_prev_t"], x[:, -1])
+        sharding.assign(state["wkv"], new_wkv)
     return out, state
 
 
@@ -139,5 +141,5 @@ def rwkv_channel_mix(p, x, cfg, state=None):
     k = torch.square(F.relu(_mm(xk, p["ck"])))
     out = torch.sigmoid(_mm(xr, p["cr"])) * _mm(k, p["cv"])
     if state is not None:
-        state["x_prev_c"].copy_(x[:, -1])
+        sharding.assign(state["x_prev_c"], x[:, -1])
     return out, state

@@ -28,6 +28,12 @@ no cache is given, so its activations are recomputed in the backward pass
 (JAX's ``nothing_saveable`` remat of the scan body).  A stacked leaf is
 split into its reps once a forward (`torch.unbind`), whose backward stacks
 the reps' gradients in one tensor.
+
+Sharding: JAX's constraint sites are kept (the residual stream per unit,
+Megatron-SP's gathered FFN input, the logits), and `forward` runs inside
+`sharding.sharded_region` (`implicit_replication` while a mesh is
+installed), so DTensor parameters and caches run the same code; on plain
+tensors every constraint is a no-op.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from repro_torch.core.logquant import QuantizedTensor
 from repro_torch.kernels.ref import positions as _positions
 from .attention import attention_mixer, attn_init, init_kv_cache
 from .cnn import params_from_numpy, resolve_device  # noqa: F401
+from . import sharding
 from .griffin import griffin_init, griffin_mixer, griffin_state_init
 from .layers import (embed, embed_init, ffn, ffn_init, norm, norm_init,
                      unembed)
@@ -73,17 +80,24 @@ def unit_init(gen, cfg, unit, *, lead=(), device=None):
 
 def init_params(cfg, seed: int = 0, *, device=None):
     """Random parameters from ``seed`` on ``device`` (default: the card;
-    raises without one unless ``device="cpu"``).  The values differ from
-    the JAX package's for the same seed; tests bridge a JAX tree with
-    `params_from_numpy` instead."""
+    raises without one unless ``device="cpu"``; ``"meta"`` gives shapes
+    and dtypes only).  The values differ from the JAX package's for the
+    same seed; tests bridge a JAX tree with `params_from_numpy` instead."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=device if device.type != "meta"
+                          else "cpu").manual_seed(seed)
     segs = {f"seg{si}": unit_init(gen, cfg, unit, lead=(n_rep,),
                                   device=device)
             for si, (unit, n_rep) in enumerate(cfg.segments)}
     return {"embed": embed_init(gen, cfg, device=device),
             "segments": segs,
             "final_norm": norm_init(cfg, device=device)}
+
+
+def abstract_params(cfg):
+    """The parameter tree on the ``meta`` device (no allocation), where
+    the JAX package returns ``ShapeDtypeStruct``s."""
+    return init_params(cfg, 0, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +125,10 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device=None):
                          for i, kind in enumerate(unit)}
             for si, (unit, n_rep) in enumerate(cfg.segments)}
     return {"index": 0, "segments": segs}
+
+
+def abstract_cache(cfg, batch, max_len, dtype=torch.bfloat16):
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +179,11 @@ def _apply_layer(lp, h, cfg, kind, positions, lcache, index):
                                     cache=lcache, index=index)
     h = h + o
     hn = norm(cfg, lp["norm2"], h)
+    if cfg.residual_shard == "seq" and cfg.sp_style == "megatron" \
+            and hn.shape[1] > 1:
+        # Megatron-SP: gather the tokens over the model axis here so the
+        # FFN weights stay TP-sharded
+        hn = sharding.constrain(hn, ("batch", None, None))
     if cfg.is_moe:
         o, aux = moe_ffn(lp["ffn"], hn, cfg)
         return h + o, lcache, aux
@@ -169,6 +192,9 @@ def _apply_layer(lp, h, cfg, kind, positions, lcache, index):
 
 def _apply_unit(up, h, cfg, unit, positions, ucache, index):
     """One repeated unit (the layers of the pattern) → (h, aux)."""
+    seq_ax = "tp_seq" if cfg.residual_shard == "seq" and h.shape[1] > 1 \
+        else None
+    h = sharding.constrain(h, ("batch", seq_ax, None))
     aux = 0.0
     for i, kind in enumerate(unit):
         h, _, a = _apply_layer(up[f"l{i}"], h, cfg, kind, positions,
@@ -188,6 +214,11 @@ def forward(params, inputs, cfg, *, positions=None, cache=None):
     index + arange(T); qwen2-vl's M-RoPE takes [3, B, T].  ``aux`` is the
     MoE router loss summed over the layers (a 0-d fp32 tensor), 0.0 for
     archs without MoE."""
+    with sharding.sharded_region():
+        return _forward(params, inputs, cfg, positions, cache)
+
+
+def _forward(params, inputs, cfg, positions, cache):
     if cfg.embed_inputs:
         h = embed(params["embed"], inputs, cfg)
     else:
@@ -219,7 +250,9 @@ def forward(params, inputs, cfg, *, positions=None, cache=None):
 
 
 def logits_fn(params, h, cfg):
-    return unembed(params["embed"], h, cfg)
+    with sharding.sharded_region():
+        logits = unembed(params["embed"], h, cfg)
+        return sharding.constrain(logits, ("batch", None, "tensor"))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +279,15 @@ def chunked_xent(params, h, labels, mask, cfg, chunk: int = 512):
         ll, mm = labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
         logits = logits_fn(params, h[:, c0:c0 + chunk], cfg).to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, ll[..., None])[..., 0]
+        if sharding.is_sharded(logits):
+            # vocab-sharded logits: pick the gold logit with a one-hot sum
+            # (a partial sum over the vocab shards), where DTensor's
+            # gather fails
+            onehot = ll[..., None] == torch.arange(logits.shape[-1],
+                                                   device=ll.device)
+            gold = (logits * onehot).sum(-1)
+        else:
+            gold = logits.gather(-1, ll[..., None])[..., 0]
         tot = tot + ((logz - gold) * mm).sum()
         cnt = cnt + mm.sum()
     return tot / torch.clamp(cnt, min=1.0)

@@ -14,9 +14,15 @@ of more than 64 MiB is split into up to 16 shards of its flattened values
 then a rename), `CheckpointManager.save` is async (the host snapshot is
 taken on the caller's thread, the files are written on another), and
 ``keep`` rotation bounds the disk.  Restore builds tensors of the
-template's dtypes on the template's device (or ``device=``).  Resharding
-onto a new mesh (``shardings=``) belongs to the multi-device part of the
-port (ROADMAP.md queue A, item 17).
+template's dtypes on the template's device (or ``device=``).
+
+Restore *reshards*: the manifest stores the logical array, not the mesh,
+so ``shardings=`` (a tree of `models.sharding.NamedSharding`, the new
+layout) restores a checkpoint written under any mesh, or by the JAX
+package, onto the current one.  Each rank reads only its own slice of each
+leaf (memory-mapped; from the flattened shard files only the elements it
+holds) and wraps it with ``DTensor.from_local``: no rank reads a whole
+leaf, and no data crosses ranks.
 """
 
 from __future__ import annotations
@@ -28,13 +34,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-
-def _no_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a sharded layout (shardings=) is the multi-device "
-            "part of the port, ROADMAP.md queue A, item 17")
+from repro_torch.models import sharding as _sharding
 
 
 # ------------------------------------------------------------------ pytree io
@@ -65,9 +68,10 @@ def _unflatten_into(template, flat: dict, prefix: str = ""):
 
 def _host(leaf) -> torch.Tensor:
     """A CPU copy of a leaf (a tensor, numpy array or number) that later
-    in-place updates of the leaf cannot reach."""
+    in-place updates of the leaf cannot reach; a DTensor's whole value
+    (gathered: every rank must call it)."""
     if torch.is_tensor(leaf):
-        return leaf.detach().to("cpu", copy=True)
+        return _sharding.full(leaf.detach()).to("cpu", copy=True)
     return torch.as_tensor(np.array(leaf))
 
 
@@ -78,6 +82,30 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
             "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
+
+
+def _read_slice(path: str, fname: str, meta: dict, idx: tuple) -> np.ndarray:
+    """The elements ``idx`` (a tuple of slices) of a stored leaf, reading
+    only those: a single file is memory-mapped and sliced; a leaf split
+    into flattened shard files is gathered from each shard's mapping by
+    flat index."""
+    n, shape = meta["shards"], tuple(meta["shape"])
+    if n == 1:
+        arr = np.load(os.path.join(path, f"{fname}.shard_0_of_1.npy"),
+                      mmap_mode="r")
+        return np.array(arr[idx])
+    flat = np.ravel_multi_index(
+        np.ix_(*(np.arange(s.start, s.stop) for s in idx)), shape)
+    out, lo = None, 0
+    for i in range(n):
+        piece = np.load(os.path.join(path, f"{fname}.shard_{i}_of_{n}.npy"),
+                        mmap_mode="r")
+        if out is None:
+            out = np.empty(flat.shape, piece.dtype)
+        hit = (flat >= lo) & (flat < lo + piece.shape[0])
+        out[hit] = piece[flat[hit] - lo]
+        lo += piece.shape[0]
+    return out
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -101,8 +129,8 @@ def save_checkpoint(directory: str, step: int, state, *, sync: bool = True):
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
     for key, leaf in _flatten(state).items():
-        arr, dtype = _to_numpy(leaf.detach().cpu() if torch.is_tensor(leaf)
-                               else _host(leaf))
+        arr, dtype = _to_numpy(_sharding.full(leaf.detach()).cpu()
+                               if torch.is_tensor(leaf) else _host(leaf))
         n = _shard_count(arr.size * arr.dtype.itemsize)
         manifest["leaves"][key] = {
             "shape": list(arr.shape), "dtype": dtype, "shards": n}
@@ -136,8 +164,10 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
     ones included).  Each leaf takes its template's dtype (cast where the
     checkpoint's differs) and lands on ``device``, by default the
     template leaf's (a ``meta`` template needs ``device``).  A template may
-    hold a subset of the checkpoint's leaves.  Returns (state, step)."""
-    _no_shardings(shardings)
+    hold a subset of the checkpoint's leaves.  ``shardings``: an optional
+    tree of `models.sharding.NamedSharding`; a leaf that has one becomes a
+    DTensor laid out by it, built from this rank's slice only, on
+    ``device`` (default: the mesh's device type).  Returns (state, step)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -146,12 +176,28 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
         manifest = json.load(f)
 
     flat_tpl = _flatten(template)
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     flat = {}
     for key, meta in manifest["leaves"].items():
         if key not in flat_tpl:
             continue  # allow template subsets (e.g. params-only restore)
         n = meta["shards"]
         fname = key.replace("/", "__")
+        tpl, sh = flat_tpl[key], flat_shard.get(key)
+        if tuple(meta["shape"]) != tuple(tpl.shape):
+            raise ValueError(f"{key}: ckpt shape {tuple(meta['shape'])} != "
+                             f"template {tuple(tpl.shape)}")
+        if sh is not None:
+            local = _from_numpy(_read_slice(
+                path, fname, meta,
+                _sharding.local_slice(tpl.shape, sh)), meta["dtype"])
+            dev = device if device is not None else sh.mesh.device_type
+            flat[key] = DTensor.from_local(
+                local.to(device=dev, dtype=tpl.dtype), sh.mesh,
+                list(sh.placements), run_check=False,
+                shape=tuple(tpl.shape),
+                stride=torch.empty(tuple(tpl.shape), device="meta").stride())
+            continue
         if n == 1:
             arr = np.load(os.path.join(path, f"{fname}.shard_0_of_1.npy"))
         else:
@@ -159,10 +205,6 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
                 path, f"{fname}.shard_{i}_of_{n}.npy")) for i in range(n)]
             arr = np.concatenate(parts).reshape(meta["shape"])
         t = _from_numpy(arr, meta["dtype"])
-        tpl = flat_tpl[key]
-        if tuple(t.shape) != tuple(tpl.shape):
-            raise ValueError(f"{key}: ckpt shape {tuple(t.shape)} != "
-                             f"template {tuple(tpl.shape)}")
         flat[key] = t.to(device=device if device is not None
                          else tpl.device, dtype=tpl.dtype)
     for key in flat_tpl:
@@ -174,7 +216,9 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
 # ------------------------------------------------------------------ manager
 class CheckpointManager:
     """Async save + rotation.  `save()` returns once the host snapshot is
-    taken; the previous async save is joined first (never two writers)."""
+    taken; the previous async save is joined first (never two writers).
+    In a process group every rank takes the snapshot (a DTensor leaf is
+    gathered) and rank 0 writes it."""
 
     def __init__(self, directory: str, *, keep: int = 3, every: int = 0):
         self.directory = directory
@@ -201,6 +245,8 @@ class CheckpointManager:
         # train step updates the state's tensors in place), IO async
         host_state = _unflatten_into(
             state, {k: _host(v) for k, v in _flatten(state).items()})
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return  # every rank gathered; rank 0 writes
 
         def work():
             save_checkpoint(self.directory, step, host_state)

@@ -22,6 +22,10 @@ Counterpart of `repro.serving.engine` for every token arch the port runs
     seeded with ``seed + len(output)`` draws the token (its stream differs
     from `jax.random`'s, so only greedy decoding matches the JAX engine).
 
+On DTensor parameters (a mesh of more than one device) the cache stays a
+plain tensor, whole on every rank, and the logits are gathered before
+sampling, so every rank samples the same tokens.
+
 MoE capacity follows the token count of each forward, as in JAX.  A
 prefill routes its padded bucket: C = int(cf·Tpad·K/E) counts the pad
 tokens, which queue behind the real ones (queue order is token-major), so
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import resolve_impl
-from repro_torch.models import transformer
+from repro_torch.models import sharding, transformer
 from repro_torch.obs import kernel_profile as obs_kprof
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -214,8 +218,8 @@ class ServeEngine:
         h, _, _ = transformer.forward(
             self.params, toks.to(self.device), self.cfg,
             cache={"index": 0, "segments": sub})
-        return transformer.logits_fn(self.params, h[:, T - 1:T],
-                                     self.cfg)[0, 0]
+        return sharding.full(transformer.logits_fn(
+            self.params, h[:, T - 1:T], self.cfg))[0, 0]
 
     def _admit(self):
         for slot in self._free_slots():
@@ -286,7 +290,8 @@ class ServeEngine:
         h, _, _ = transformer.forward(
             self.params, lp[0][:, None], self.cfg,
             cache={"index": lp[1], "segments": self.cache["segments"]})
-        return transformer.logits_fn(self.params, h, self.cfg)[:, 0]
+        return sharding.full(
+            transformer.logits_fn(self.params, h, self.cfg))[:, 0]
 
     # ------------------------------------------------------------ main loop
     def step(self) -> bool:

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.logquant import (DEFAULT, LogQuantConfig,
                                        log_dequantize, log_quantize)
+from repro_torch.models import sharding
 from .optimizer import tree_map
 
 
@@ -53,9 +54,12 @@ def compressor_init(params, cfg: CompressorConfig = CompressorConfig()) \
 
 
 def compress_decompress(g, cfg: LogQuantConfig = DEFAULT):
-    """Round-trip one tensor through the wire format (fp32 in/out)."""
-    packed, scale = log_quantize(g.to(torch.float32), cfg)
-    return log_dequantize(packed, scale, cfg, dtype=torch.float32)
+    """Round-trip one tensor through the wire format (fp32 in/out); a
+    DTensor on its shards (`sharding.channelwise`)."""
+    def roundtrip(t):
+        packed, scale = log_quantize(t.to(torch.float32), cfg)
+        return log_dequantize(packed, scale, cfg, dtype=torch.float32)
+    return sharding.channelwise(roundtrip, g)
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models import sharding
 from repro_torch.models.cnn import params_from_numpy
 from repro_torch.obs import trace as obs_trace
 from .grad_compress import (CompressorConfig, compressor_init,
@@ -97,7 +98,9 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
 
     The returned step takes (state, batch) where batch leaves have leading
     dim = microbatches × per-micro batch and returns (state, metrics); the
-    state's tensors are updated in place.  Each microbatch's gradients are
+    state's tensors are updated in place.  Under a mesh the state may hold
+    DTensors (`launch.steps.state_shardings`); the step runs inside
+    `sharding.sharded_region`.  Each microbatch's gradients are
     summed in fp32 before the next runs, so peak activation memory is one
     microbatch.
     """
@@ -116,6 +119,10 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
             grads
 
     def step(state: TrainState, batch):
+        with sharding.sharded_region():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         params = state["params"]
         batch = _tensor(batch, tree_leaves(params)[0].device)
         if cfg.microbatches > 1:
@@ -146,7 +153,9 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
                      "step": state["step"] + 1}
         if cfg.grad_compress:
             new_state["compress"] = new_comp
-        out_metrics = {"loss": loss, "grad_norm": gnorm, **metrics}
+        # a DTensor metric may be a partial sum: its whole value
+        out_metrics = {k: sharding.full(v) for k, v in
+                       {"loss": loss, "grad_norm": gnorm, **metrics}.items()}
         return new_state, out_metrics
 
     return step

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports `jax`, the JAX package `repro` or the JAX
+"""The port stands alone: no module of `repro_torch` (the sharding layer,
+`models/sharding.py`, `launch/mesh.py` and `launch/steps.py`, included),
+and not `chip_smoke.py`, imports `jax`, the JAX package `repro` or the JAX
 package's top-level `benchmarks`; and its entry points run on the card
 unless the caller asks for the CPU."""
 
@@ -34,7 +35,8 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_sources_import_neither_jax_nor_repro():
     assert len(PORT_FILES) >= 10
     models = {p.name for p in PORT_FILES if p.parent.name == "models"}
-    assert {"griffin.py", "moe.py", "rwkv.py", "transformer.py"} <= models
+    assert {"griffin.py", "moe.py", "rwkv.py", "transformer.py",
+            "sharding.py"} <= models
     obs = {p.name for p in PORT_FILES if p.parent.name == "obs"}
     assert "kernel_profile.py" in obs
     benches = {p.name for p in PORT_FILES if p.parent.name == "benchmarks"}
@@ -51,7 +53,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert {"optimizer.py", "grad_compress.py", "train_loop.py"} <= \
         by_dir["training"]
     assert {"checkpoint.py", "monitor.py"} <= by_dir["runtime"]
-    assert "train.py" in by_dir["launch"]
+    assert {"train.py", "serve.py", "mesh.py", "steps.py"} <= \
+        by_dir["launch"]
     assert {"quickstart.py", "serve_lm.py", "train_lm.py"} <= \
         by_dir["examples"]
     for path in PORT_FILES:
@@ -174,9 +177,16 @@ def test_card_timing_scripts_refuse_without_a_card(module, tmp_path,
 
 
 def test_launch_train_refuses_production_naming_the_roadmap():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="queue A, item 17"):
-        train.main(["--production", "--reduced", "--device", "cpu"])
+    """``--production`` builds the 16×16 mesh, which needs a world of 256
+    ranks: on one rank both launchers raise, naming the size, and never
+    fall back to the host mesh."""
+    from repro_torch.launch import serve, train
+    from repro_torch.models import sharding
+    for main in (train.main, serve.main):
+        with pytest.raises(RuntimeError, match="world of 256 ranks"):
+            main(["--production", "--reduced", "--device", "cpu"])
+        assert sharding.get_mesh() is None
+        assert not torch.distributed.is_initialized()
 
 
 def test_chip_smoke_fails_without_a_card(monkeypatch, capsys):

@@ -11,11 +11,19 @@ the JAX package's `repro.runtime`:
   * JAX training 3 steps, the port restoring its checkpoint and training 3
     more, against JAX's 6 steps (SGD with momentum, whose update is linear
     in the gradient; params within 1e-5·(max|p|+1));
-  * ``shardings=`` raising, naming the roadmap item that holds it.
+  * ``shardings=``: a restore onto a 1×1 mesh (a one-rank gloo group) and,
+    rank by rank under the ``fake`` backend, onto the (2, 4) mesh of
+    `tests/test_elastic_reshard.py`, in a child process (the JAX
+    package's checkpoint restored sharded on 4 gloo ranks is in
+    `tests/test_torch_sharded_execution.py`).
 """
 
 import dataclasses
+import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,6 +48,8 @@ from repro_torch.runtime import checkpoint as tck  # noqa: E402
 from repro_torch.runtime import monitor as tmon  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training import train_loop as ttl  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _state():
@@ -85,11 +95,121 @@ def test_load_into_meta_template(tmp_path):
     _equal(restored, state)
 
 
-def test_shardings_are_refused_naming_the_roadmap(tmp_path):
-    tck.save_checkpoint(str(tmp_path), 1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="queue A, item 17"):
-        tck.load_checkpoint(str(tmp_path), {"w": torch.ones(2)},
-                            shardings={"w": None})
+_RESTORE_CHILD = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+import torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.sharding import NamedSharding
+from repro_torch.runtime.checkpoint import load_checkpoint
+
+out = {{}}
+dist.init_process_group("gloo", init_method="file://{tmp}/pg", rank=0,
+                        world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+sh = {{"w": NamedSharding(mesh, ("data", None))}}
+st, _ = load_checkpoint({ck1!r}, {{"w": torch.zeros(4, 4)}}, shardings=sh)
+out["1x1"] = [tuple(st["w"].placements) == sh["w"].placements,
+              st["w"].full_tensor().tolist()]
+dist.destroy_process_group()
+
+meta = lambda *s, dtype=torch.float32: torch.empty(s, dtype=dtype,
+                                                   device="meta")
+for rank in range(8):
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=8)
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    tpl = {{"w1": meta(16, 8), "split": meta(12, 10),
+           "nested": {{"emb": meta(32, 16, dtype=torch.bfloat16)}},
+           "step": meta(dtype=torch.int32)}}
+    sh = {{"w1": NamedSharding(mesh, ("data", "model")),
+          "split": NamedSharding(mesh, ("model", "data")),
+          "nested": {{"emb": NamedSharding(mesh, ("model", "data"))}},
+          "step": NamedSharding(mesh, ())}}
+    st, step = load_checkpoint({ck8!r}, tpl, shardings=sh)
+    out[rank] = {{"coord": mesh.get_coordinate(), "step": step,
+                 "w1": st["w1"].to_local().tolist(),
+                 "split": st["split"].to_local().tolist(),
+                 "emb": st["nested"]["emb"].to_local().float().tolist(),
+                 "s": int(st["step"].to_local())}}
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def restored(tmp_path_factory):
+    """A child process restores onto a 1×1 mesh (a one-rank gloo group)
+    and, rank by rank under the ``fake`` backend, onto (2, 4)."""
+    tmp = tmp_path_factory.mktemp("restore")
+    tck.save_checkpoint(str(tmp / "c1"), 1,
+                        {"w": torch.arange(16.0).reshape(4, 4)})
+    state = {"w1": torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8),
+             "split": torch.arange(120, dtype=torch.float32).reshape(12, 10),
+             "nested": {"emb": torch.full((32, 16), 3.0,
+                                          dtype=torch.bfloat16)},
+             "step": torch.tensor(7, dtype=torch.int32)}
+    count = tck._shard_count
+    tck._shard_count = lambda nbytes: 3 if nbytes == 480 else count(nbytes)
+    try:   # "split" goes to 3 files of its flattened values
+        tck.save_checkpoint(str(tmp / "c8"), 7, state)
+    finally:
+        tck._shard_count = count
+    assert len([f for f in os.listdir(tmp / "c8" / "step_000000007")
+                if f.startswith("split.")]) == 3
+    script = _RESTORE_CHILD.format(src=str(ROOT / "src"), tmp=str(tmp),
+                                   ck1=str(tmp / "c1"), ck8=str(tmp / "c8"))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1]), state
+
+
+def test_restore_reshards_onto_new_mesh(restored):
+    """Save unsharded, restore sharded onto a 1×1 mesh: the placements are
+    the sharding's and the values the saved ones (mirror of
+    `tests/test_runtime.py`)."""
+    out, _ = restored
+    same_placements, values = out["1x1"]
+    assert same_placements
+    assert values == torch.arange(16.0).reshape(4, 4).tolist()
+
+
+def _block(arr, coord, spec, mesh=(2, 4)):
+    """The block of ``arr`` that mesh coordinate ``coord`` holds under a
+    2-D spec over ("data", "model")."""
+    axis = {"data": 0, "model": 1}
+    idx = []
+    for d, name in enumerate(spec):
+        if name is None:
+            idx.append(slice(None))
+            continue
+        n = arr.shape[d] // mesh[axis[name]]
+        c = coord[axis[name]]
+        idx.append(slice(c * n, (c + 1) * n))
+    return arr[tuple(idx)]
+
+
+def test_restore_onto_2x4_mesh_rank_by_rank(restored):
+    """The (2, 4) restore of `tests/test_elastic_reshard.py`, each of the 8
+    ranks under the ``fake`` backend: its local shard is its slice of the
+    saved array (a leaf split over 3 files included)."""
+    out, state = restored
+    coords = set()
+    for rank in range(8):
+        r = out[str(rank)]
+        coords.add(tuple(r["coord"]))
+        assert r["step"] == 7 and r["s"] == 7
+        for key, spec, arr in (
+                ("w1", ("data", "model"), state["w1"]),
+                ("split", ("model", "data"), state["split"]),
+                ("emb", ("model", "data"),
+                 state["nested"]["emb"].float())):
+            assert r[key] == _block(arr, r["coord"], spec).tolist(), \
+                (rank, key)
+    assert len(coords) == 8
 
 
 def test_manager_rotation_and_latest(tmp_path):
