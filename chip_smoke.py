@@ -273,10 +273,30 @@ goes wrong:
      difference printed); (b) the decode step's host-clock ms, busy ms
      (`torch.profiler`) and idle share with the mesh and without it;
      (c) `make_production_mesh()` on this one-card world raises, naming
-     256.
+     256;
+ 24. the dry run (`launch/dryrun.py`, `launch/perf.py`): (a) in processes
+     of their own, without the card (``CUDA_VISIBLE_DEVICES`` empty),
+     ``python -m repro_torch.launch.dryrun`` on gemma-2b and rwkv6-1.6b at
+     decode_32k, each on the 16x16 and the 2x16x16 ``fake`` mesh, ``python
+     -m repro_torch.launch.perf`` on gemma-2b decode_32k (baseline,
+     heads+bcast) and ``python -m repro_torch.analysis.report --dir`` on
+     their records under ``chiprun_out/dryrun``; no record may hold an
+     error; each record's three roofline terms, bound, GiB a device and
+     trace seconds printed; (b) meanwhile, in a process of its own
+     (``chip_smoke.py --count``), gemma-2b as in 23 on the 1x1 NCCL mesh:
+     one decode step under the dry run's counting mode and one without
+     it, launching B2 126 and B3 18 times each; the counted
+     ``argument_bytes`` within ``ARG_TOL`` of the `memory_allocated` that
+     the placed params, the prefilled cache and the inputs take, the
+     counted ``temp_bytes`` plus the new outputs within ``TEMP_TOL`` of the
+     uncounted step's `max_memory_allocated` over its start; the counted
+     FLOPs equal to those of the same step on ``meta`` shards (counted
+     before NCCL starts, under a ``fake`` group of one rank); the
+     roofline's step time printed beside the step's busy ms.
 
-Phases 5, 9, 12, 14, 15, 16, 17, 22(a) and 23(a) drive the main paths: the
-kernels' launch counts are set to 0 just before each and read just after.
+Phases 5, 9, 12, 14, 15, 16, 17, 22(a), 23(a) and 24(b) drive the main
+paths: the kernels' launch counts are set to 0 just before each and read
+just after.
 The autotune user tier is an empty file of the run's own, so every main
 path launches the packaged tier's knobs.
 
@@ -3617,6 +3637,252 @@ def _mesh_path(dev, launch_mesh) -> dict:
     return res
 
 
+# 24: the dry run's cells, and the count against the card.  ARG_TOL: the
+# allocator rounds each block up to 512 bytes, over some hundred live
+# leaves; TEMP_TOL: the kernels' own scratch (B2's split-K and B3's
+# split-KV partials, a few MB a call, freed within it), which the count
+# leaves out with the rest of a kernel's insides, and the same rounding
+DRYRUN_CELLS = [(LM_ARCH, "decode_32k"), (RWKV_ARCH, "decode_32k")]
+PERF_VARIANTS = ["baseline", "heads+bcast"]
+ARG_TOL = (2**20, 1e-3)        # bytes + relative share of the count
+TEMP_TOL = (64 * 2**20, 0.05)
+
+
+def phase_dryrun() -> dict:
+    """24: (a) the dry run, the perf harness and the report in processes of
+    their own, without the card, while (b) ``chip_smoke.py --count`` runs
+    on it."""
+    import os
+    import shutil
+    from repro_torch.analysis.roofline import from_record
+    out = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)] + multi
+            for arch, shape in DRYRUN_CELLS for multi in ([], ["--multi-pod"])]
+    cmds.append([sys.executable, "-m", "repro_torch.launch.perf", "--arch",
+                 LM_ARCH, "--shape", "decode_32k", "--out", str(out / "perf"),
+                 "--variant", *PERF_VARIANTS])
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        res = {"count": _subprocess("--count")}
+        runs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = []
+    for c, p, (so, se) in zip(cmds, procs, runs):
+        print(so[-3000:], end="")
+        if p.returncode != 0:
+            print(se[-4000:])
+            bad.append(f"{' '.join(c[2:])} exited {p.returncode}")
+    if bad:
+        fail(f"phase 24: {bad}")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report",
+                          "--dir", str(out)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    print(rep.stdout, end="")
+    if rep.returncode != 0:
+        print(rep.stderr[-4000:])
+        fail("phase 24: analysis.report --dir did not render the records")
+    res["records"] = {}
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if "error" in rec:
+            fail(f"phase 24: {path.name}: {rec['error']}")
+        r = from_record(rec)
+        row = {"t_compute_ms": r.t_compute * 1e3,
+               "t_memory_ms": r.t_memory * 1e3,
+               "t_collective_ms": r.t_collective * 1e3,
+               "bottleneck": r.bottleneck,
+               "gib_per_device": r.memory_per_dev / 2**30,
+               "trace_s": rec["timings"]["prod_compile_s"],
+               "peak_rss_gb": rec["peak_rss_bytes"] / 1e9,
+               "collectives": rec["collectives_prod_once"]["counts"]}
+        res["records"][path.stem] = row
+        print(f"dry run {path.stem}: compute {row['t_compute_ms']:.3f} ms, "
+              f"memory {row['t_memory_ms']:.3f} ms, collective "
+              f"{row['t_collective_ms']:.3f} ms → {row['bottleneck']}; "
+              f"{row['gib_per_device']:.2f} GiB a device; traced in "
+              f"{row['trace_s']:.1f} s (peak RSS {row['peak_rss_gb']:.2f} "
+              f"GB)")
+    want = {f"{a}__{s}__{m}" for a, s in DRYRUN_CELLS
+            for m in ("single", "multi")}
+    if set(res["records"]) != want:
+        fail(f"phase 24: records {sorted(res['records'])}, want {sorted(want)}")
+    perf = [json.loads(ln) for ln in
+            (out / "perf" / f"{LM_ARCH}__decode_32k.jsonl").read_text()
+            .splitlines()]
+    if [p["variant"] for p in perf] != PERF_VARIANTS:
+        fail(f"phase 24: perf rows {[p['variant'] for p in perf]}")
+    res["perf"] = {p["variant"]: p["row"] for p in perf}
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase 24 wall time {res['wall_s']:.1f} s")
+    return res
+
+
+def _count_setup():
+    """gemma-2b as phase 23 runs it (serve defaults, packed, the CUDA
+    kernels), with its prefill and decode shapes registered."""
+    from repro_torch.configs import base
+    from repro_torch.configs.registry import get_config
+    args = _serve_args(LM_ARCH)
+    cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg.reduced() if args.reduced else cfg,
+                              attn_impl="cuda", quant="logq6")
+    B, S = args.max_batch, args.max_len
+    base.SHAPES["count_prefill"] = dict(seq_len=S, global_batch=B,
+                                        step="prefill")
+    base.SHAPES["count_decode"] = dict(seq_len=S, global_batch=B,
+                                       step="decode")
+    return args, cfg, B, S
+
+
+def count_check() -> int:
+    """``chip_smoke.py --count``: 24(b) in a process of its own (it starts
+    NCCL); prints ``{"count": {...}}`` last."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import sharding
+    _, cfg, _, _ = _count_setup()
+    # the same step on meta shards, before NCCL starts
+    with dryrun.fake_group(1):
+        mesh = launch_mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
+        fn, abs_args, shs = steps.build_decode_step(
+            dataclasses.replace(cfg, attn_impl="auto"), "count_decode", mesh)
+        meta = dryrun._compile_args(fn, abs_args, shs)
+    dev = torch.device("cuda", 0)
+    with launch_mesh.process_group(dev):
+        res = _count_path(dev, launch_mesh, meta)
+    print(json.dumps({"count": res}, default=str))
+    return 0
+
+
+def _count_path(dev, launch_mesh, meta) -> dict:
+    """24(b) inside a started process group: ``meta`` is the count of the
+    same decode step on meta shards."""
+    import gc
+    from repro_torch.analysis.roofline import Roofline, model_flops_for
+    from repro_torch.configs import base
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import sharding, transformer
+    from repro_torch.serving.quantize import quantize_params
+    args, cfg, B, S = _count_setup()
+    mesh = launch_mesh.make_host_mesh(device=dev)
+    if sharding.mesh_shape(mesh) != {"data": 1, "model": 1} or \
+            torch.distributed.get_backend() != "nccl":
+        fail("phase 24 wants a 1x1 NCCL mesh")
+    pf, _, (psh, bsh) = steps.build_prefill_step(cfg, "count_prefill", mesh)
+    df, _, (_, _, dsh) = steps.build_decode_step(cfg, "count_decode", mesh)
+    gen = torch.Generator().manual_seed(SEED)
+    prompt = torch.randint(1, cfg.vocab, (B, MESH_PROMPT), generator=gen)
+    nxt = torch.randint(1, cfg.vocab, (B, 1), generator=gen)
+    sharding.set_mesh(mesh)
+
+    def setup():
+        params = quantize_params(transformer.init_params(cfg, args.seed,
+                                                         device=dev))
+        placed = sharding.place(params, psh)
+        del params
+        _, cache = pf(placed, sharding.place({"tokens": prompt.to(dev)}, bsh))
+        return placed, cache, sharding.place({"tokens": nxt.to(dev)}, dsh)
+
+    # a warm-up: the kernels' first launches, cuBLAS's workspace, tickets
+    df(*setup())
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    step_args = setup()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - m0
+    wrappers = _wrappers()
+
+    def launches():
+        return {op: w.launches for op, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    count = dryrun.Count()
+    with count.trace(step_args):
+        out = df(*step_args)
+    torch.cuda.synchronize()
+    count.finish(out)
+    counted_launches = launches()
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    out = df(*step_args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_bytes
+    plain_launches = launches()
+    del out
+    mem = count.memory
+    new_out = mem["output_bytes"] - mem["alias_bytes"]
+    res = {"memory": mem, "allocated_arguments": allocated,
+           "peak_over_start": peak, "flops": count.flops,
+           "meta_flops": meta.flops, "bytes": count.bytes,
+           "meta_bytes": meta.bytes, "kernel_ops": dict(count.kernels),
+           "collectives": count.collectives(),
+           "launches_counted": counted_launches,
+           "launches_uncounted": plain_launches}
+    want = {op: n for op, n in launches_per_forward(cfg).items() if n}
+    print(f"count: launches {counted_launches} counted, {plain_launches} "
+          f"not, want {want}")
+    for got in (counted_launches, plain_launches):
+        if {op: n for op, n in got.items() if n} != want:
+            fail("phase 24: the decode step's kernel launches")
+    arg_lim = ARG_TOL[0] + ARG_TOL[1] * mem["argument_bytes"]
+    temp_lim = TEMP_TOL[0] + TEMP_TOL[1] * (mem["temp_bytes"] + new_out)
+    res.update(arg_diff=allocated - mem["argument_bytes"], arg_tol=arg_lim,
+               temp_diff=peak - (mem["temp_bytes"] + new_out),
+               temp_tol=temp_lim)
+    print(f"count: argument bytes {mem['argument_bytes']} counted, "
+          f"{allocated} allocated (diff {res['arg_diff']}, tol "
+          f"{arg_lim:.0f}); temp {mem['temp_bytes']} + new outputs "
+          f"{new_out} counted, peak {peak} over the step's start (diff "
+          f"{res['temp_diff']}, tol {temp_lim:.0f})")
+    print(f"count: FLOPs {count.flops} on the card, {meta.flops} on meta "
+          f"shards; bytes {count.bytes} and {meta.bytes}; kernel ops "
+          f"{dict(count.kernels)}")
+    if abs(res["arg_diff"]) > arg_lim:
+        fail("phase 24: counted argument bytes against memory_allocated")
+    if abs(res["temp_diff"]) > temp_lim:
+        fail("phase 24: counted temp bytes against max_memory_allocated")
+    if count.flops != meta.flops:
+        fail("phase 24: the card's count differs from the meta count")
+    roof = Roofline(arch=cfg.name, shape="count_decode", mesh="1x1", chips=1,
+                    flops_per_dev=count.flops, bytes_per_dev=count.bytes,
+                    coll_bytes_per_dev=count.collectives()["total"],
+                    model_flops=model_flops_for(cfg,
+                                                base.SHAPES["count_decode"]),
+                    memory_per_dev=mem["temp_bytes"] + mem["argument_bytes"])
+    prof = profile_forward(lambda: df(*step_args))
+    sharding.set_mesh(None)
+    res.update(roofline=roof.row(), step_time_ms=roof.step_time * 1e3,
+               device_busy_ms=prof["device_busy_ms"],
+               device_kernels=prof["device_kernels"])
+    print(f"count: roofline step time {res['step_time_ms']:.4f} ms "
+          f"(compute {roof.t_compute * 1e3:.4f}, memory "
+          f"{roof.t_memory * 1e3:.4f}, collective "
+          f"{roof.t_collective * 1e3:.4f}; {roof.bottleneck}) against "
+          f"{prof['device_busy_ms']:.4f} busy ms "
+          f"({prof['device_kernels']} kernels) on {card_line()}")
+    return res
+
+
 def autotune_check() -> int:
     """``chip_smoke.py --autotune``: phase 22 in a fresh process (its
     forwards are profiled, and late in a long process the `torch.profiler`
@@ -3738,6 +4004,8 @@ def main() -> int:
     tuned = _subprocess("--autotune")
     torch.cuda.empty_cache()
     meshed = _subprocess("--mesh")
+    torch.cuda.empty_cache()
+    dry = phase_dryrun()
 
     tot = {k: sum(n[k] for n in nets)
            for k in ("ms", "heuristic_ms", "event_ms", "plain_ms",
@@ -3832,6 +4100,7 @@ def main() -> int:
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
          "profiler": prof, "benches": benches, "training": training,
          "example_twins": twins, "autotune": tuned, "mesh": meshed,
+         "dryrun": dry,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "
@@ -3864,5 +4133,6 @@ if __name__ == "__main__":
               "--profiled-loops": profiled_loops_check,
               "--benches": benches_check,
               "--autotune": autotune_check,
-              "--mesh": mesh_check}.get(
+              "--mesh": mesh_check,
+              "--count": count_check}.get(
                   " ".join(sys.argv[1:]), main)())

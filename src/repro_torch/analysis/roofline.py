@@ -7,13 +7,13 @@
 Counterpart of `repro.analysis.roofline` with the record schema unchanged:
 a record holds ``cost_true.{flops,bytes,collective_bytes}`` (per device),
 ``memory.{temp_bytes,argument_bytes}`` and ``model_flops``, as the JAX
-package's dry run writes them.  The port's dry run (ROADMAP.md queue A,
-item 17, part 2) is to write the same records.
+package's dry run writes them and the port's (`launch/dryrun.py`) does.
 
 What stays out: JAX's ``collective_bytes()`` and its regexes, which read
 the collectives out of XLA's optimized HLO text.  The port compiles no HLO;
-its dry run is to count the collectives that its DTensor placements issue
-(queue A, item 17, part 2) and put their bytes under ``collective_bytes``.
+its dry run counts the collectives that its DTensor placements issue, with
+JAX's wire-byte accounting (`launch.dryrun.wire_bytes`), and puts their
+bytes under ``collective_bytes``.
 
 Hardware model: one NVIDIA H100 SXM, from NVIDIA's data sheet (dense
 rates, no sparsity, at the 700 W power limit): 989 TFLOP/s bf16 on the

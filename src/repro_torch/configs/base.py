@@ -5,8 +5,9 @@ shapes (`SHAPES`, `cell_is_runnable`) and `input_specs`, whose stand-ins
 are tensors on the ``meta`` device.  The sharding knobs (`attn_shard`,
 `residual_shard`, `sp_style`) are JAX's, with its defaults and meanings
 (`models/sharding.py` reads them under a mesh); the scan knob
-`scan_unroll` is not carried over: only the dry run's accounting compiles
-read it (ROADMAP.md queue A, item 17, part 2).
+`scan_unroll` is not carried over: only JAX's dry run reads it, to undo
+XLA's count of a loop body once, and the port's dry run
+(`launch/dryrun.py`) traces every layer of its Python loop.
 """
 
 from __future__ import annotations

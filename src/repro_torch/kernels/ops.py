@@ -24,6 +24,12 @@ goes through `kernel_profile.dispatch` with its shape key and analytic
 bytes, in the formats of `repro.kernels.ops`; while it is off, neither is
 computed.
 
+While the dry run's counter is installed (`set_counter`, by
+`launch/dryrun.py`), every op counts as one unit of work, its FLOPs by the
+kernel's arithmetic and its bytes those of its operands and results, on
+every impl: a step counts the same on the card, where the kernel runs, as
+on ``meta`` tensors, where the plain version runs uncounted.
+
 Under a mesh (`models.sharding`), an op given DTensor operands reaches its
 kernel through `local_map`, with placements written out per op
 (`_sharded_log_matmul`, `_sharded_attention`, `_sharded_wkv6`,
@@ -69,6 +75,31 @@ _OP_IMPLS = {
 }
 
 
+_COUNTER = None  # the dry run's counter (`launch.dryrun.Count`) or None
+
+
+def set_counter(counter):
+    """Install the dry run's counter (None removes it); returns the one it
+    replaces.  The counter's ``kernel(op, call, inputs, work)`` runs
+    ``call`` and counts it."""
+    global _COUNTER
+    old, _COUNTER = _COUNTER, counter
+    return old
+
+
+def _counted(op: str, call, inputs, work):
+    """``call`` as the installed counter sees it: ``inputs`` are the
+    tensors the op reads, ``work(out)`` its (flops, transcendentals).  An
+    op under autograd runs its plain version on every device (the kernels
+    refuse grad) and is counted op by op."""
+    counter = _COUNTER
+    if counter is None or (torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in inputs)):
+        return call
+    return lambda *a, **k: counter.kernel(op, lambda: call(*a, **k),
+                                          inputs, work)
+
+
 def resolve_impl(op: str, impl: str = "auto", device=None) -> str:
     """An explicit ``impl`` (validated against the op's implementations)
     beats ``"auto"``, which picks "cuda" when the operands lie on a CUDA
@@ -106,6 +137,8 @@ def log_matmul(x, qt: QuantizedTensor, *, impl: str = "auto"):
         # blockwise == ref for a matmul (as in the JAX package)
         call = lambda: ref_log_matmul(x2, qt.packed, scale, qt.cfg,
                                       out_dtype=x.dtype)
+    call = _counted("log_matmul", call, (x2, qt.packed, scale),
+                    lambda y: (y.numel() * (2 * K + 1), 0))
     if _kprof.PROFILER.enabled():
         M, it = x2.shape[0], x.element_size()
         act, w, outb = M * K * it, K * N, M * N * it  # codes move as int8
@@ -295,6 +328,9 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
         y = (fn(x, packed, qt.scale, qt.cfg, **kw) if on_launch is None
              else fn(x, packed, qt.scale, qt.cfg, on_launch=on_launch, **kw))
         return y if out_dtype is None else y.to(out_dtype)
+    call = _counted("conv2d", call, (x, packed, qt.scale),
+                    lambda y: (y.numel() * (2 * K * K * (C // groups) + 1),
+                               0))
     if not _kprof.PROFILER.enabled():
         return call()
     n_sm = sm_count(x.device.index) if x.is_cuda else 132
@@ -343,8 +379,8 @@ def _blockwise_attention(q, k, v, *, causal, window, scale, q_offset,
     f32, cdt, dev = torch.float32, acc_dtype, q.device
 
     pk = (-Tk) % block_k
-    kp = F.pad(k, (0, 0, 0, 0, 0, pk))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pk))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk)) if pk else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk)) if pk else v
     nkv = (Tk + pk) // block_k
 
     use_bcast = gqa_broadcast and rep > 1
@@ -525,6 +561,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
                                 config=config, autotune=autotune,
                                 scale=scale)
         call = lambda: flash_attention_cuda(q, k, v, **kw, config=knobs)
+    # two products and the online softmax's max, subtract, mask and sum a
+    # score, over every key (as the blockwise version and JAX's count it)
+    scores = B * H * Tq * Tk
+    call = _counted("attention", call, (q, k, v),
+                    lambda o: (scores * (4 * D + 4), scores))
     if not _kprof.PROFILER.enabled():
         return call()
     traffic = attention_traffic_bytes(impl, B, Tq, Tk, H, Hkv, D,
@@ -574,6 +615,12 @@ def wkv6(r, k, v, logw, u, state=None, *, impl: str = "auto",
             *(t.contiguous() for t in (r, k, v, logw)),
             u.to(torch.float32).contiguous(),
             None if state is None else state.to(torch.float32).contiguous())
+    # a token and head: k·vᵀ, the decayed state plus it, the bonus u·k·vᵀ
+    # added, r against the sum (2), per state element; one exp a decay
+    Bw, Tw, Hw, Kw = r.shape
+    call = _counted("wkv6", call, (r, k, v, logw, u, state),
+                    lambda o: (7 * Bw * Tw * Hw * Kw * v.shape[-1],
+                               Bw * Tw * Hw * Kw))
     if not _kprof.PROFILER.enabled():
         return call()
     B, T, H, K = r.shape
@@ -604,11 +651,15 @@ def _model_dim(mesh):
     return names.index("model") if "model" in names else None
 
 
-def _batch_placements(x, mesh) -> list:
-    """Dim 0 (the batch) kept ``Shard(0)`` on the batch axes (pod, data)
-    where ``x`` has it there, every other mesh dim replicated."""
+def _batch_placements(mesh, *xs) -> list:
+    """Dim 0 (the batch) ``Shard(0)`` on each batch axis (pod, data) where
+    one of ``xs`` has it there, every other mesh dim replicated: a decode
+    step's query, which comes out of its projection ``Partial`` over
+    ``data``, is then reduce-scattered to the cache's batch split, where
+    taking the query's placement would gather the whole cache."""
     return [Shard(0) if (name in ("pod", "data")
-                         and x.placements[i] == Shard(0)) else Replicate()
+                         and any(x.placements[i] == Shard(0) for x in xs))
+            else Replicate()
             for i, name in enumerate(mesh.mesh_dim_names)]
 
 
@@ -632,7 +683,7 @@ def _sharded_log_matmul(x, qt, impl):
     kind = packed.placements[m] if m is not None else Replicate()
     column = kind == Shard(packed.ndim - 1)
     row = kind == Shard(packed.ndim - 2)
-    pl_x = _batch_placements(x, mesh)
+    pl_x = _batch_placements(mesh, x)
     pl_out = _on_model(pl_x, m, Shard(x.ndim - 1) if column
                        else Partial() if row else Replicate())
     pl_x = _on_model(pl_x, m, Shard(x.ndim - 1) if row else Replicate())
@@ -666,7 +717,7 @@ def _sharded_attention(q, k, v, q_offset, k_offset, kw):
     m = _model_dim(mesh)
     msz = mesh.size(m) if m is not None else 1
     heads = q.shape[2] % msz == 0 and k.shape[2] % msz == 0
-    pl_b = _batch_placements(q, mesh)
+    pl_b = _batch_placements(mesh, q, k, v)
     pl = _on_model(pl_b, m, Shard(2) if heads else Replicate())
     qo, pl_qo = _offset(q_offset, mesh, pl_b)
     ko, pl_ko = _offset(k_offset, mesh, pl_b)
@@ -687,7 +738,7 @@ def _sharded_wkv6(r, k, v, logw, u, state, kw):
                                for t in (r, k, v, logw, u, state))
     m = _model_dim(mesh)
     heads = m is None or r.shape[2] % mesh.size(m) == 0
-    pl_b = _batch_placements(r, mesh)
+    pl_b = _batch_placements(mesh, r)
     pl_x = _on_model(pl_b, m, Shard(2) if heads else Replicate())
     pl_s = _on_model(pl_b, m, Shard(1) if heads else Replicate())
     pl_u = _on_model([Replicate()] * mesh.ndim, m,

@@ -10,8 +10,8 @@ shardings are trees of `models.sharding.NamedSharding`, and
 eagerly on the placed tensors (or on plain ones) inside
 `sharding.sharded_region`; there is no ``jit``/``donate``: the train step
 updates the state's tensors in place, as `training.train_loop` does.
-`launch/dryrun.py` and `launch/perf.py`, which compile these steps for
-the production meshes in JAX, are ROADMAP.md queue A, item 17, part 2.
+`launch/dryrun.py` and `launch/perf.py` trace these steps on ``meta``
+shards over the production meshes.
 """
 
 from __future__ import annotations
@@ -141,9 +141,9 @@ def _cache_shardings(cfg, mesh, B, S, cache_dtype):
 
 
 def _device(table):
-    if sharding.is_sharded(table):
-        return torch.device(table.device_mesh.device_type)
-    return table.device
+    """The device of the params' storage: a DTensor's local shard's (the
+    ``meta`` device in the dry run), not its mesh's device type."""
+    return (table.to_local() if sharding.is_sharded(table) else table).device
 
 
 def build_prefill_step(cfg, shape_name: str, mesh, *,
@@ -186,6 +186,8 @@ def build_decode_step(cfg, shape_name: str, mesh, *,
 
     def step(params, cache, batch):
         inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
+        if sharding.is_sharded(cache["index"]):  # a replicated scalar
+            cache = {**cache, "index": cache["index"].to_local()}
         with sharding.sharded_region():
             return transformer.decode_step(params, inputs, cfg, cache,
                                            positions=batch.get("positions"))

@@ -61,9 +61,9 @@ def _qkv(p, h, cfg, positions):
     def proj(w, b):
         return dense({"w": p[w], **({"b": p[b]} if b in p else {})}, h, cfg)
 
-    q = proj("wq", "bq").reshape(B, T, cfg.n_heads, cfg.head_dim)
-    k = proj("wk", "bk").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = proj("wv", "bv").reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = sharding.split_heads(proj("wq", "bq"), cfg.n_heads, cfg.head_dim)
+    k = sharding.split_heads(proj("wk", "bk"), cfg.n_kv_heads, cfg.head_dim)
+    v = sharding.split_heads(proj("wv", "bv"), cfg.n_kv_heads, cfg.head_dim)
     if cfg.attn_shard == "heads":
         # Megatron-style TP: heads over the model axis, head_dim whole
         q = sharding.constrain(q, ("batch", None, "tensor", None))
@@ -158,5 +158,5 @@ def attention_mixer(p, h, cfg, *, kind="attn", positions, cache=None,
         out = sharding.constrain(out, ("batch", None, "tensor", None))
     elif cfg.attn_shard == "seq" and T > 1:
         out = sharding.constrain(out, ("batch", "tp_seq", None, None))
-    out = out.reshape(B, T, cfg.q_dim)
+    out = sharding.merge_heads(out)
     return dense({"w": p["wo"]}, out, cfg), cache

@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import sharding
-from .layers import _gelu, _init
+from .layers import _gelu, _init, _matmul_input
 
 C_RGLRU = 8.0
 
@@ -97,19 +97,21 @@ def _rglru(x, loga, h0=None):
 def griffin_mixer(p, x, cfg, state=None):
     """x: [B, T, D] → (out [B, T, D], state): ``h`` and ``conv`` of a given
     state are overwritten in place."""
-    gate = _gelu(x @ p["w_gate"].to(x.dtype))
-    u = x @ p["w_x"].to(x.dtype)
+    xm = _matmul_input(x, cfg)
+    gate = _gelu(xm @ p["w_gate"].to(x.dtype))
+    u = xm @ p["w_x"].to(x.dtype)
     prev = state["conv"] if state is not None else None
     u, conv_carry = _causal_conv1d(u, p["conv_w"], p["conv_b"], prev)
 
     u32 = u.to(torch.float32)
-    r = torch.sigmoid(u32 @ p["w_r"])
-    i = torch.sigmoid(u32 @ p["w_i"])
+    um = _matmul_input(u32, cfg)
+    r = torch.sigmoid(um @ p["w_r"])
+    i = torch.sigmoid(um @ p["w_i"])
     softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
     loga = -C_RGLRU * softplus * r
     h = _rglru(i * u32, loga, None if state is None else state["h"])
 
-    out = (gate * h.to(x.dtype)) @ p["w_out"].to(x.dtype)
+    out = _matmul_input(gate * h.to(x.dtype), cfg) @ p["w_out"].to(x.dtype)
     if state is not None:
         sharding.assign(state["h"], h[:, -1])
         sharding.assign(state["conv"], conv_carry)

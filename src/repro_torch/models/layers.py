@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        fake_log_quant)
@@ -29,6 +30,24 @@ def _init(gen, shape, scale=None, *, lead=(), device=None):
                        device=device) * scale
 
 
+def _matmul_input(x, cfg):
+    """A matmul's input ``x`` split on its batch and last dims only: a
+    split sequence or a strided split gathered, a partial sum reduced.
+    DTensor's cost model may split a sequence after a partial sum (a
+    reduce-scatter, cheaper than an all-reduce); the matmul's view of batch
+    × sequence as one dim then takes a strided shard, and for strided
+    shards and partial inputs DTensor weighs candidate layouts by a graph
+    search that takes minutes a layer on the 2×16×16 mesh.  The §Perf
+    variants that split the sequence on purpose keep it split."""
+    if not sharding.is_sharded(x) or x.ndim < 3 or (
+            cfg is not None and "seq" in (cfg.attn_shard, cfg.residual_shard)):
+        return x
+    pl = [q if type(q) is Shard and q.dim in (0, x.ndim - 1)
+          else Replicate() for q in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
 def dense(p, x, cfg=None):
     """x @ w (+ b).  A `QuantizedTensor` weight runs on `ops.log_matmul`;
     otherwise ``cfg.quant == "logq6"`` fake-quantizes the float weight."""
@@ -39,7 +58,7 @@ def dense(p, x, cfg=None):
         if cfg is not None and cfg.quant == "logq6":
             w = sharding.channelwise(
                 lambda t: fake_log_quant(t, LogQuantConfig()), w)
-        y = x @ w.to(x.dtype)
+        y = _matmul_input(x, cfg) @ w.to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -161,10 +180,26 @@ def embed_init(gen, cfg, device=None):
     return p
 
 
+def _one_batch_split(tokens):
+    """Token ids split on dim 0 over one mesh dim at most: over the
+    innermost of several (the 2×16×16 mesh's ``data`` of ``("pod",
+    "data")``), gathered over the others.  torch 2.11's DTensor has no
+    index rule for an index split over two mesh dims; the residual stream's
+    constraint splits the rows again."""
+    if not sharding.is_sharded(tokens):
+        return tokens
+    dims = [i for i, q in enumerate(tokens.placements) if q == Shard(0)]
+    if len(dims) < 2:
+        return tokens
+    pl = [Replicate() if i in dims[:-1] else q
+          for i, q in enumerate(tokens.placements)]
+    return tokens.redistribute(tokens.device_mesh, pl)
+
+
 def embed(p, tokens, cfg):
     # gather first, then cast: equal to casting the table first, without
     # converting the whole table every call
-    h = p["table"][tokens].to(cfg.act_dtype)
+    h = p["table"][_one_batch_split(tokens)].to(cfg.act_dtype)
     if cfg.embed_scale:
         # the factor is rounded to the activation dtype before the multiply
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
@@ -176,5 +211,5 @@ def unembed(p, h, cfg):
     if cfg.tie_embeddings:
         # a plain product outside any kernel, as in the JAX package; the
         # table is cast to the activation dtype on every call
-        return h @ p["table"].to(h.dtype).T
+        return _matmul_input(h, cfg) @ p["table"].to(h.dtype).T
     return dense({"w": p["lm_head"]}, h, cfg)

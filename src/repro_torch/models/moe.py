@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import sharding
 from .layers import _gelu, _init
@@ -97,6 +99,51 @@ def route(p, xt, cfg, T: int, capacity: int | None = None) -> dict:
             "dispatch": dispatch, "combine": combine}
 
 
+def _experts(xe, w1, w3, w2, cfg):
+    """The expert FFNs: xe [n_g, E, C, D] → [n_g, E, C, D].  On DTensors
+    each rank runs its own groups and experts (`local_map`), the weights
+    gathered over the batch axes: DTensor's own einsum backward views a
+    transposed local shard that cannot be viewed (granite-moe's train_4k
+    on the 16×16 mesh; ROADMAP.md C)."""
+    def fn(xe, w1, w3, w2):
+        if w3 is not None:
+            act = F.silu if cfg.ffn == "swiglu" else _gelu
+            h = act(torch.einsum("gecd,edf->gecf", xe, w1))
+            h = h * torch.einsum("gecd,edf->gecf", xe, w3)
+        else:
+            h = _gelu(torch.einsum("gecd,edf->gecf", xe, w1))
+        return torch.einsum("gecf,efd->gecd", h, w2)
+    if not sharding.is_sharded(xe, w1):
+        return fn(xe, w1, w3, w2)
+    mesh = next(t.device_mesh for t in (xe, w1) if sharding.is_sharded(t))
+    xe, w1, w3, w2 = (sharding.replicated(t, mesh) for t in (xe, w1, w3, w2))
+    pl_x = list(xe.placements)
+    pl_w = [Shard(0) if p == Shard(1) else Replicate() for p in pl_x]
+    # a weight gathered over the groups' split: each rank's gradient is a
+    # partial sum over it
+    pl_g = [Partial() if p == Shard(0) else q for p, q in zip(pl_x, pl_w)]
+    return local_map(fn, out_placements=pl_x,
+                     in_placements=(pl_x, pl_w, None if w3 is None else pl_w,
+                                    pl_w),
+                     in_grad_placements=(pl_x, pl_g,
+                                         None if w3 is None else pl_g, pl_g),
+                     redistribute_inputs=True)(xe, w1, w3, w2)
+
+
+def _combine(combine, ye):
+    """y [n_g, G, D] = Σ over (e, c) of combine [n_g, G, E, C] · ye
+    [n_g, E, C, D].  On DTensors as one batched matmul over (e, c)
+    flattened expert-major, so that the experts' split over ``model``
+    stays a plain split: `torch.einsum` may flatten (c, e), a strided
+    split, for which DTensor weighs layouts by a graph search of about a
+    second each (granite-moe's train_4k on 2×16×16; ROADMAP.md C)."""
+    if not sharding.is_sharded(combine, ye):
+        return torch.einsum("gnec,gecd->gnd", combine, ye)
+    g, n, E, C = combine.shape
+    return torch.matmul(combine.reshape(g, n, E * C),
+                        ye.reshape(g, E * C, ye.shape[-1]))
+
+
 def moe_ffn(p, x, cfg, capacity: int | None = None):
     """x: [B, T, D] → (y [B, T, D], aux_loss: a 0-d fp32 tensor)."""
     B, T, D = x.shape
@@ -108,17 +155,11 @@ def moe_ffn(p, x, cfg, capacity: int | None = None):
     # dispatch: [n_g, E, C, D]; groups shard over batch, experts over model
     xe = torch.einsum("gnec,gnd->gecd", rt["dispatch"].to(x.dtype), xg)
     xe = sharding.constrain(xe, ("batch", "tensor", None, None))
-    w1 = p["moe_w1"].to(x.dtype)
-    if cfg.ffn in ("swiglu", "geglu"):
-        act = F.silu if cfg.ffn == "swiglu" else _gelu
-        h = act(torch.einsum("gecd,edf->gecf", xe, w1))
-        h = h * torch.einsum("gecd,edf->gecf", xe,
-                             p["moe_w3"].to(x.dtype))
-    else:
-        h = _gelu(torch.einsum("gecd,edf->gecf", xe, w1))
-    ye = torch.einsum("gecf,efd->gecd", h, p["moe_w2"].to(x.dtype))
+    w3 = p["moe_w3"].to(x.dtype) if cfg.ffn in ("swiglu", "geglu") else None
+    ye = _experts(xe, p["moe_w1"].to(x.dtype), w3,
+                  p["moe_w2"].to(x.dtype), cfg)
     ye = sharding.constrain(ye, ("batch", "tensor", None, None))
-    y = torch.einsum("gnec,gecd->gnd", rt["combine"].to(x.dtype), ye)
+    y = _combine(rt["combine"].to(x.dtype), ye)
 
     # load-balancing aux loss (global)
     frac = rt["onehot"].sum(dim=2).reshape(N, E).mean(dim=0)

@@ -218,6 +218,40 @@ def constrain(x, axes: tuple | None):
     return x.redistribute(x.device_mesh, want)
 
 
+def split_heads(x, n: int, d: int):
+    """``x`` [..., n·d] viewed as [..., n, d].  On a DTensor whose last dim
+    is sharded over mesh dims whose product does not divide ``n`` (8 heads
+    on a 16-way ``model`` axis), that dim is first gathered, the rule of
+    `sanitize_spec`: DTensor cannot split ``n`` unevenly, where XLA's
+    partitioner shards it unevenly (ROADMAP.md C).  The view runs on each
+    rank's shard (`local_map`), a split of the last dim then a split of
+    the heads, so that the backward pass, too, meets no uneven view."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-1], n, d)
+    last = x.ndim - 1
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(last)]
+    ways = 1
+    for i in dims:
+        ways *= x.device_mesh.size(i)
+    pl = [Replicate() if (i in dims and n % ways) else p
+          for i, p in enumerate(x.placements)]
+    return local_map(lambda t: t.reshape(*t.shape[:-1], -1, d),
+                     out_placements=pl, in_placements=(pl,),
+                     redistribute_inputs=True)(x)
+
+
+def merge_heads(x):
+    """``x`` [..., n, d] viewed as [..., n·d], the inverse of
+    `split_heads`: on a DTensor, on each rank's shard, the heads' split (if
+    any) becoming the last dim's and a split of ``d`` gathered first."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*x.shape[:-2], -1)
+    pl = [Replicate() if p == Shard(x.ndim - 1) else p for p in x.placements]
+    return local_map(lambda t: t.reshape(*t.shape[:-2], -1),
+                     out_placements=pl, in_placements=(pl,),
+                     redistribute_inputs=True)(x)
+
+
 def replicated(t, mesh):
     """A plain tensor as a replicated DTensor on ``mesh`` (no copy); a
     DTensor as is."""
@@ -260,10 +294,22 @@ def write_rows(dst, rows, cols, src):
     if tuple(shape[:2]) == tuple(dst.shape[:2]):
         local[rows, cols] = src  # dims 0 and 1 whole on every rank
         return dst
-    # the elements of this rank's slice (a mask, which syncs the host)
-    keep = ((rows >= off[0]) & (rows < off[0] + shape[0])
-            & (cols >= off[1]) & (cols < off[1] + shape[1]))
-    local[rows[keep] - off[0], cols[keep] - off[1]] = src[keep]
+    # the elements of this rank's slice, by index arithmetic alone (no
+    # mask index, which syncs the host and has no meta kernel): an element
+    # outside the slice writes the value of the first element inside it to
+    # that element's place, the same value twice in any order, or, with
+    # none inside, the value already at [0, 0] back to [0, 0]
+    lr, lc = rows - off[0], cols - off[1]
+    keep = (lr >= 0) & (lr < shape[0]) & (lc >= 0) & (lc < shape[1])
+    first = keep.reshape(-1).to(torch.int32).argmax().reshape(1)
+    inside = keep.any()
+    flat = src.reshape(keep.numel(), *src.shape[keep.ndim:])
+    r0 = torch.where(inside, lr.reshape(-1)[first], 0)
+    c0 = torch.where(inside, lc.reshape(-1)[first], 0)
+    v0 = torch.where(inside, flat[first], local[0, 0])
+    vals = torch.where(keep.reshape(keep.shape + (1,) * (src.ndim - keep.ndim)),
+                       src, v0)
+    local[torch.where(keep, lr, r0), torch.where(keep, lc, c0)] = vals
     return dst
 
 

@@ -128,7 +128,11 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device=None):
 
 
 def abstract_cache(cfg, batch, max_len, dtype=torch.bfloat16):
-    return init_cache(cfg, batch, max_len, dtype, device="meta")
+    """The cache on the ``meta`` device, its index an int32 scalar as in
+    JAX's abstract cache."""
+    cache = init_cache(cfg, batch, max_len, dtype, device="meta")
+    cache["index"] = torch.zeros((), dtype=torch.int32, device="meta")
+    return cache
 
 
 # ---------------------------------------------------------------------------
