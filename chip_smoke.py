@@ -211,7 +211,8 @@ goes wrong:
      twins' correctness and traffic gates must hold, the five analytic
      benches and fig1_quant (at the JAX bench's size) must read
      REPRODUCED, the ablation's EF gap must stay under 0.15 nats; the
-     telemetry overhead is printed.  In the same process fig1_quant runs
+     telemetry overhead and the conv twin's im2col traffic win against
+     JAX's 4.0 gate (reported, not held) are printed.  In the same process fig1_quant runs
      once more at full width (VGG-16 at width 1.0, 224 px, 1000 classes,
      batch 8): its SNR gain, three logit correlations and verdict are
      printed, and only their finiteness is held;
@@ -292,11 +293,28 @@ goes wrong:
      uncounted step's `max_memory_allocated` over its start; the counted
      FLOPs equal to those of the same step on ``meta`` shards (counted
      before NCCL starts, under a ``fake`` group of one rank); the
-     roofline's step time printed beside the step's busy ms.
+     roofline's step time printed beside the step's busy ms;
+ 25. the explicit-im2col route (``conv_impl="cuda_im2col"``: every conv as
+     im2col patches in device memory, grouped convs on block-diagonal
+     codes, on the log_matmul kernel): the four nets of phase 5 at batch
+     8, 224 px, packed as there.  log_matmul must launch 13/27/36/26 times
+     a forward and the conv kernel never; in a second forward each conv's
+     output is held against the plain version (``impl="ref"``: the same
+     patches times `ref_log_matmul`) on the same input within 1e-4 *
+     (max|y| + 1); each net's forward ms, device kernels, busy ms (B2's
+     share) and idle share.  Then each of the 61 distinct conv shapes
+     alone: B2's device time and the route's (patches included), summed
+     over the 102 convs beside phase 6's B1, `F.conv2d` and plain times
+     on the same shapes, and the bound (the conv's bytes, or its FLOP at
+     the fp32 peak).  Last, VGG-16's first conv at batch 11 (551,936
+     rows, above the grid's 524,280): two launches of whole row tiles,
+     held against the plain version.  Each total is printed beside the
+     card's name and power limit.
 
-Phases 5, 9, 12, 14, 15, 16, 17, 22(a), 23(a) and 24(b) drive the main
-paths: the kernels' launch counts are set to 0 just before each and read
-just after.
+Phases 5, 9, 12, 14, 15, 16, 17, 22(a), 23(a), 24(b) and 25 drive the
+main paths: the kernels' launch counts are set to 0 just before each and
+read just after.  Phase 25 runs right after phase 6, whose per-conv times
+it reads.
 The autotune user tier is an empty file of the run's own, so every main
 path launches the packaged tier's knobs.
 
@@ -1032,6 +1050,176 @@ def phase_conv_times(dev) -> tuple[dict, list]:
                   f"{tot['depthwise_share_of_bound_cold_ms']:.3f} (library "
                   f"{tot['depthwise_share_of_bound_cold_library_ms']:.3f})")
     return times, nets
+
+
+def _route_bound(r: dict) -> tuple[float, float]:
+    """(bytes ms, operations ms) of the log_matmul product an im2col conv
+    runs: its patches, block-diagonal codes, scale and y each once; its
+    multiply-adds over the block-diagonal K at the fp32 peak."""
+    from repro_torch.kernels.log_conv2d import _out_size, normalize_padding
+    B, H, W, C, K, Cout = (r[k] for k in ("B", "H", "W", "C", "K", "Cout"))
+    pads = normalize_padding(r["padding"], K, r["stride"], H, W)
+    M = B * _out_size(H, K, r["stride"], pads[0]) \
+        * _out_size(W, K, r["stride"], pads[1])
+    nbytes = 4 * M * K * K * C + K * K * C * Cout + 4 * Cout + 4 * M * Cout
+    return (nbytes / PEAK_HBM_BYTES * 1e3,
+            2 * M * K * K * C * Cout / PEAK_FP32_FLOPS * 1e3)
+
+
+def phase_im2col(dev, conv_times: dict) -> dict:
+    """25: the explicit-im2col route: every conv of the four nets as im2col
+    patches on the log_matmul kernel (``conv_impl="cuda_im2col"``)."""
+    from repro_torch.core.logquant import quantize_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.kernels.log_matmul import (log_matmul_cuda,
+                                                log_matmul_row_chunks)
+    from repro_torch.models.cnn import (CNNS, make_cnn, trace_conv_shapes,
+                                        zoo_conv_shapes)
+    from repro_torch.serving.quantize import quantize_cnn_params
+    card = card_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
+    nets = {name: quantize_cnn_params(
+        make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)[0],
+        conv_layout="lane_packed") for name in CNNS}
+
+    def forward(name):
+        with torch.no_grad():
+            return CNNS[name][1](nets[name], x, quant="logq6",
+                                 conv_impl="cuda_im2col")
+
+    # the main path: the counts are zeroed just before it, read just after
+    log_matmul_cuda.launches = 0
+    log_conv2d_fused.launches = 0
+    for name in CNNS:
+        before = log_matmul_cuda.launches
+        out = forward(name)
+        torch.cuda.synchronize()
+        launched = log_matmul_cuda.launches - before
+        if launched != CONVS_PER_NET[name]:
+            fail(f"{name} on cuda_im2col: log_matmul launched {launched} "
+                 f"times, expected {CONVS_PER_NET[name]}")
+        if tuple(out.shape) != (BATCH, N_CLASSES) or \
+                not bool(torch.isfinite(out).all()):
+            fail(f"{name} on cuda_im2col: logits {tuple(out.shape)} or "
+                 f"non-finite")
+    main_launches = log_matmul_cuda.launches
+    if log_conv2d_fused.launches:
+        fail(f"the im2col route launched the conv kernel "
+             f"{log_conv2d_fused.launches} times")
+    print(f"main path (im2col route): {main_launches} log_matmul launches "
+          f"for one forward of each net ({CONVS_PER_NET}), conv kernel 0")
+
+    rows = []
+    for name in CNNS:
+        conv, ratios = ops.conv2d, []
+
+        def checked(xin, qt, **kw):
+            y = conv(xin, qt, **kw)
+            yr = conv(xin, qt, **dict(kw, impl="ref"))
+            tol = 1e-4 * (float(yr.abs().max()) + 1)
+            ratios.append(float((y - yr).abs().max()) / tol)
+            return y
+        ops.conv2d = checked
+        try:
+            forward(name)
+            torch.cuda.synchronize()
+        finally:
+            ops.conv2d = conv
+        if len(ratios) != CONVS_PER_NET[name] or max(ratios) > 1.0:
+            fail(f"{name} on cuda_im2col: {len(ratios)} convs checked, worst "
+                 f"err/tol against the plain version {max(ratios):.3e}")
+        row = {"net": name, "launches": CONVS_PER_NET[name],
+               "conv_err_over_tol": max(ratios),
+               "forward_ms": time_ms(lambda: forward(name), 3)}
+        row["images_per_s"] = BATCH / row["forward_ms"] * 1e3
+        row.update(profile_forward(lambda: forward(name)))
+        row["idle_share"] = (1 - row["device_busy_ms"] / row["forward_ms"]
+                             if row["device_kernels"] else None)
+        rows.append(row)
+        print(f"im2col {name:12s}: worst conv err/tol {max(ratios):.3e}; "
+              f"forward {row['forward_ms']:.3f} ms "
+              f"({row['images_per_s']:.1f} images/s), {row['device_kernels']}"
+              f" device kernels, busy {row['device_busy_ms']:.3f} ms (B2 "
+              f"{row['log_matmul_ms']:.3f}), idle share {row['idle_share']}; "
+              f"{card}")
+    del nets
+    torch.cuda.empty_cache()
+
+    # each distinct conv alone: B2's kernel and the whole route (patches
+    # included) as device time, beside phase 6's B1 and F.conv2d
+    rng = np.random.default_rng(SEED + 2)
+    per = {}
+    with torch.no_grad():
+        for r in zoo_conv_shapes(batch=BATCH, img=IMG, n_classes=N_CLASSES):
+            xr, qt, *_ = make_conv(r, rng, dev)
+            kw = dict(stride=r["stride"], padding=r["padding"],
+                      groups=r["groups"])
+
+            def route():
+                return ops.conv2d(xr, qt, impl="cuda_im2col", **kw)
+            b2_ms, _ = _device_ms(route, f"im2col B2 {sig(r)}",
+                                  match="log_matmul", expect=1)
+            route_ms, n_route = _device_ms(route, f"im2col route {sig(r)}")
+            bytes_ms, ops_ms = _route_bound(r)
+            per[sig(r)] = {"ms": b2_ms, "route_ms": route_ms,
+                           "route_kernels": n_route,
+                           "product_bound_ms": max(bytes_ms, ops_ms)}
+            del xr, qt
+            torch.cuda.empty_cache()
+    nets_t = []
+    for name in CNNS:
+        recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
+                                 n_classes=N_CLASSES)
+        t = {k: sum(per[sig(r)][k] for r in recs)
+             for k in ("ms", "route_ms", "product_bound_ms")}
+        for k, src in (("b1_ms", "ms"), ("library_ms", "library_ms"),
+                       ("plain_ms", "plain_ms"),
+                       ("bound_ms", "fp32_bound_ms")):
+            t[k] = sum(conv_times[sig(r)][src] for r in recs)
+        t["net"], t["convs"] = name, len(recs)
+        nets_t.append(t)
+        print(f"im2col convs {name:12s} x{len(recs)} at batch {BATCH}: B2 "
+              f"{t['ms']:.3f} ms device (route with its patches "
+              f"{t['route_ms']:.3f}), B1 {t['b1_ms']:.3f}, F.conv2d "
+              f"{t['library_ms']:.3f}, plain {t['plain_ms']:.3f} ms; bound "
+              f"{t['bound_ms']:.3f} ms (the conv at the fp32 peak; the "
+              f"block-diagonal product's {t['product_bound_ms']:.3f}); "
+              f"{card}")
+    tot = {k: sum(t[k] for t in nets_t) for k in (
+        "ms", "route_ms", "b1_ms", "library_ms", "plain_ms", "bound_ms",
+        "product_bound_ms")}
+    print(f"im2col route over the {sum(CONVS_PER_NET.values())} convs: B2 "
+          f"{tot['ms']:.3f} ms device, B1 {tot['b1_ms']:.3f}, F.conv2d "
+          f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f}; {card}")
+
+    # a product above the grid's 524,280 rows: VGG-16's first conv at
+    # batch 11, 224 px (551,936 rows), two launches
+    rows_l = 11 * 224 * 224
+    xl = torch.randn((11, 224, 224, 3), generator=gen, device=dev)
+    ql = quantize_tensor(torch.randn((3, 3, 3, 64), generator=gen,
+                                     device=dev) * (2 / 27) ** 0.5)
+    chunks = log_matmul_row_chunks(rows_l, 27, 64)
+    before = log_matmul_cuda.launches
+    with torch.no_grad():
+        y = ops.conv2d(xl, ql, impl="cuda_im2col")
+        torch.cuda.synchronize()
+        n = log_matmul_cuda.launches - before
+        yr = ops.conv2d(xl, ql, impl="ref")
+    err, tol = _err_tol(y, yr, 1e-4)
+    if len(chunks) != 2 or n != 2 or not err <= tol:
+        fail(f"im2col at {rows_l} rows: {n} launches for chunks {chunks}, "
+             f"err {err:.3e} (tol {tol:.3e})")
+    print(f"im2col at 11 x 224^2 = {rows_l} rows: {n} launches {chunks}, "
+          f"|y - plain| {err:.3e} (tol {tol:.3e})")
+    del xl, y, yr
+    torch.cuda.empty_cache()
+    return {"card": card, "main_launches": main_launches, "nets": rows,
+            "convs": nets_t, "total": tot,
+            "per_shape": {"/".join(k): v for k, v in per.items()},
+            "large_m": {"rows": rows_l, "chunks": chunks,
+                        "launches": n, "max_abs_err": err, "tol": tol}}
 
 
 # ---------------------------------------------------------------------------
@@ -2796,6 +2984,15 @@ def phase_benches() -> dict:
     for name in ("conv_kernels", "attention_kernels"):
         if not files[name]["ok"]:
             fail(f"the {name} twin's correctness or traffic gate failed")
+    conv = files["conv_kernels"]
+    print("conv twin: fused traffic win (act+w bytes, cuda_im2col over "
+          "cuda) " + ", ".join(f"{r['layer']} {r['fused_traffic_win_x']:.3f}x"
+                               for r in conv["rows"])
+          + f"; smallest on a 3x3 layer {conv['traffic_win_3x3']:.3f}x against"
+          f" JAX's gate {conv['traffic_win_3x3_gate']}x: "
+          f"{'OK' if conv['traffic_win_3x3_ok'] else 'short'} (reported); "
+          "im2col us " + ", ".join(f"{r['layer']} {r['im2col_us']:.1f}"
+                                   for r in conv["rows"]))
     for name in ANALYTIC_BENCHES + ("fig1_quant", "ablation_grad_compress"):
         if res["verdicts"][name]["ok"] is not True:
             fail(f"the {name} twin did not reproduce its claim: "
@@ -3974,6 +4171,7 @@ def main() -> int:
     checks, max_err = phase_sweeps(dev)
     slice_rows, launches = phase_slice(dev)
     times, nets = phase_conv_times(dev)
+    im2col = phase_im2col(dev, times)
     mm_rows, mm_err = phase_log_matmul(dev)
     at_rows, at_err = phase_attention(dev)
     lm = phase_serving(dev, LM_ARCH)
@@ -4033,6 +4231,8 @@ def main() -> int:
                for op in ("log_matmul", "attention")}
     for op in ("log_matmul", "attention"):
         by_path[op][f"{LM_ARCH} on the 1x1 mesh"] = meshed["launches"][op]
+    by_path["log_matmul"]["the four nets on cuda_im2col"] = \
+        im2col["main_launches"]
     kernels = [
         row("log_conv2d_fused", "log_conv2d.cu",
             "src/repro/kernels/log_conv2d.py:491",
@@ -4062,7 +4262,15 @@ def main() -> int:
             mm_err, mm, time=f"device time by torch.profiler over the "
             f"{mm['calls']} products of one {LM_ARCH} decode step; "
             f"plain_ms by CUDA events", event_loop_ms=mm["event_loop_ms"],
-            launches_by_path=by_path["log_matmul"]),
+            launches_by_path=by_path["log_matmul"],
+            im2col_route=dict(
+                im2col["total"], convs=sum(CONVS_PER_NET.values()),
+                time="ms: B2's device time by torch.profiler, summed over "
+                "the 102 convs of one batch-8 forward of each net, each "
+                "conv alone; route_ms with the patches; b1_ms, library_ms "
+                "(F.conv2d) and plain_ms from phase 6 on the same shapes; "
+                "bound_ms the convs' at the fp32 peak",
+                large_m=im2col["large_m"])),
         row("flash_attention_cuda", "flash_attention.cu",
             "src/repro/kernels/flash_attention.py:125",
             sum(by_path["attention"].values()), at_err,
@@ -4100,7 +4308,7 @@ def main() -> int:
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
          "profiler": prof, "benches": benches, "training": training,
          "example_twins": twins, "autotune": tuned, "mesh": meshed,
-         "dryrun": dry,
+         "dryrun": dry, "im2col": im2col,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "

@@ -8,19 +8,25 @@ the twin of the JAX package's `benchmarks/conv_kernels.py`.
 The same four layers (VGG-16 CONV1_1 and CONV3_1, MobileNet v1 DW2 and
 PW2, from `core/accelerator.py`) at batch 4, at ``img`` pixels (224 on the
 card; the JAX bench's 32 was a CI size).  Per layer, with TF32 off: the
-CUDA kernel (`ops.conv2d(impl="cuda")`), `F.conv2d` on fp32 weights (the
-JAX bench's `lax.conv` baseline) and decode + `F.conv2d` (the blockwise
-path), each as `torch.profiler` device time (host clock on the CPU, where
-"cuda" runs the kernel's plain version); ``overhead_x`` (kernel over
-fp32); ``rel_quant_err`` of blockwise against fp32 (gate < 0.2, as JAX);
-the kernel against blockwise (gate: within 1e-4·(max|y|+1), the port's
-conv tolerance); the bytes of `conv_traffic_bytes` for ``fp32`` /
+CUDA kernel (`ops.conv2d(impl="cuda")`), the explicit-im2col route onto
+the log_matmul kernel (``impl="cuda_im2col"``, JAX's ``pallas_im2col``),
+`F.conv2d` on fp32 weights (the JAX bench's `lax.conv` baseline) and
+decode + `F.conv2d` (the blockwise path), each as `torch.profiler` device
+time (host clock on the CPU, where "cuda" and "cuda_im2col" run their
+plain versions); ``overhead_x`` (kernel over fp32); ``rel_quant_err`` of
+blockwise against fp32 (gate < 0.2, as JAX); the kernel and the im2col
+route against blockwise (gate: within 1e-4·(max|y|+1), the port's conv
+tolerance); the bytes of `conv_traffic_bytes` for ``fp32`` /
 ``blockwise`` / ``cuda`` / ``min`` (``"total"``: x, weights, y and, for
-``cuda``, the split-K partials); the bound max(min bytes / 3.35 TB/s,
-FLOP / 989 TFLOP/s) and the kernel's share of it.
+``cuda``, the split-K partials); as JAX's row, ``bytes_im2col`` and
+``bytes_fused`` (``"act_w"`` of ``cuda_im2col`` and ``cuda``) and their
+ratio ``fused_traffic_win_x``, held against JAX's ``TRAFFIC_WIN_3X3`` =
+4.0 on the 3×3 layers (``traffic_ok``); the bound max(min bytes / 3.35
+TB/s, FLOP / 989 TFLOP/s) and the kernel's share of it.
 
-A probe holds the kernel against blockwise on ``1×8×8×3 → 16`` (maxdiff
-< 1e-3; JAX's interpret probe).  ``lane_rows`` take JAX's four narrow-group
+A probe holds the kernel and the im2col route against blockwise on
+``1×8×8×3 → 16`` (maxdiff < 1e-3; JAX's interpret probes, fused ≡
+im2col ≡ blockwise).  ``lane_rows`` take JAX's four narrow-group
 cases at ``batch × img × img``: the kernel on the baked ``lane_packed``
 layout and with ``ConvConfig(lane_pack=1)`` against blockwise, device
 time of the lane-packed codes against natural HWIO codes, and ``cuda``
@@ -33,10 +39,15 @@ weights, ``conv_impl="cuda"``, lane-packed depthwise codes), and every
 conv's launch knobs must resolve from the packaged tier (no miss, no
 sweep).
 
-Left out, each a ``null`` with a note in the JSON: JAX's 128-lane byte gate
-(``LANE_PACK_WIN``, a model of the TPU's lanes: the CUDA kernel reads a
-group's channels, not whole 128-lane blocks) and the im2col traffic gate
-(``TRAFFIC_WIN_3X3``, which needs the unported ``pallas_im2col``).
+The traffic gate's verdict is ``traffic_win_3x3_ok`` beside the smallest
+3×3 win ``traffic_win_3x3``; it is reported, not part of ``ok`` (the
+correctness gates and the cold start): the CUDA conv kernel's count reads
+x once per tap and column tile (first order, L2 hits not modelled), where
+JAX's fused kernel re-slices one slab for every tap, so the port's win on
+CONV3_1 (Cout 256) falls short of JAX's 4.0.  Left out, a ``null`` with a
+note in the JSON: JAX's 128-lane byte gate (``LANE_PACK_WIN``, a model of
+the TPU's lanes: the CUDA kernel reads a group's channels, not whole
+128-lane blocks).
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from .common import (bound_us, card_name, device_us, fmt_table, timer_name,
 IMG = 224   # the paper's image size; the JAX bench's CI size was 32
 BATCH = 4   # serving-sized microbatch, as the JAX bench
 QUANT_ERR_LIMIT = 0.2   # blockwise against fp32, as the JAX bench
+TRAFFIC_WIN_3X3 = 4.0   # fused act+w bytes under im2col's, as the JAX bench
 CONV_TOL = 1e-4         # kernel against blockwise: CONV_TOL·(max|y|+1)
 PROBE_LIMIT = 1e-3      # the JAX bench's interpret-probe limit
 LANE_CASES = [  # (name, C, groups, Cout, K, stride), the JAX bench's
@@ -202,40 +214,54 @@ def _run(dev, n_sm, img, batch, reps, rng) -> dict:
 
         def blockwise():
             return ops.conv2d(x, qt, impl="blockwise", **kw)
+
+        def im2col():
+            return ops.conv2d(x, qt, impl="cuda_im2col", **kw)
         y_fp, y_bw, y_k = fp32(), blockwise(), kernel()
         rel = float(torch.linalg.norm(y_bw - y_fp)
                     / (torch.linalg.norm(y_fp) + 1e-9))
         err, tol = _maxdiff(y_k, y_bw), _tol(y_bw)
+        err_im2col = _maxdiff(im2col(), y_bw)
         us = {name: device_us(fn, dev, reps) for name, fn in (
-            ("kernel", kernel), ("fp32", fp32), ("blockwise", blockwise))}
+            ("kernel", kernel), ("im2col", im2col), ("fp32", fp32),
+            ("blockwise", blockwise))}
         traffic = {impl: conv_traffic_bytes(impl, batch, H, W, spec.C,
                                             spec.K, spec.P, **kw, n_sm=n_sm)
-                   for impl in IMPLS}
+                   for impl in IMPLS + ("cuda_im2col",)}
+        win = traffic["cuda_im2col"]["act_w"] / traffic["cuda"]["act_w"]
+        traffic_ok = win >= TRAFFIC_WIN_3X3 if spec.K == 3 else True
         Ho, Wo = y_k.shape[1:3]
         flops = 2 * batch * Ho * Wo * spec.P * spec.K ** 2 * spec.C // groups
         b_us, by = bound_us(traffic["min"]["total"], flops)
-        row_ok = (rel < QUANT_ERR_LIMIT and err <= tol
+        row_ok = (rel < QUANT_ERR_LIMIT and err <= tol and err_im2col <= tol
                   and y_k.shape == y_fp.shape)
         ok &= row_ok
         rows.append({
             "net": net, "layer": spec.name,
             "shape": f"{batch}x{H}x{W}x{spec.C}->{spec.P}",
             "K": spec.K, "stride": spec.stride, "groups": groups,
-            "kernel_us": us["kernel"], "fp32_us": us["fp32"],
-            "blockwise_us": us["blockwise"],
+            "kernel_us": us["kernel"], "im2col_us": us["im2col"],
+            "fp32_us": us["fp32"], "blockwise_us": us["blockwise"],
             "overhead_x": us["kernel"] / max(us["fp32"], 1e-9),
             "rel_quant_err": rel, "kernel_maxdiff": err, "kernel_tol": tol,
+            "im2col_maxdiff": err_im2col,
             **{f"bytes_{i}": traffic[i]["total"] for i in IMPLS},
+            "bytes_im2col": traffic["cuda_im2col"]["act_w"],
+            "bytes_fused": traffic["cuda"]["act_w"],
+            "fused_traffic_win_x": win, "traffic_ok": traffic_ok,
             "gflop": flops / 1e9, "bound_us": b_us, "bound_by": by,
             "share_of_bound": b_us / us["kernel"], "ok": row_ok})
 
-    # the kernel against blockwise on a small layer (JAX's interpret probe)
+    # the kernel and the im2col route against blockwise on a small layer
+    # (JAX's interpret probes: fused ≡ im2col ≡ blockwise)
     xp, qp = tensor(1, 8, 8, 3), quantize_tensor(tensor(3, 3, 3, 16))
-    d = _maxdiff(ops.conv2d(xp, qp, impl="cuda"),
-                 ops.conv2d(xp, qp, impl="blockwise"))
-    probes = {"kernel_1x8x8x3_16": {"maxdiff": d, "limit": PROBE_LIMIT,
-                                    "ok": d < PROBE_LIMIT}}
-    ok &= d < PROBE_LIMIT
+    y_bw = ops.conv2d(xp, qp, impl="blockwise")
+    probes = {}
+    for name, impl in (("kernel", "cuda"), ("im2col", "cuda_im2col")):
+        d = _maxdiff(ops.conv2d(xp, qp, impl=impl), y_bw)
+        probes[f"{name}_1x8x8x3_16"] = {"maxdiff": d, "limit": PROBE_LIMIT,
+                                        "ok": d < PROBE_LIMIT}
+        ok &= d < PROBE_LIMIT
 
     lane_rows = []
     for name, C, G, Cout, K, stride in LANE_CASES:
@@ -268,17 +294,23 @@ def _run(dev, n_sm, img, batch, reps, rng) -> dict:
 
     print(fmt_table([{k: (f"{v:.4g}" if isinstance(v, float) else v)
                       for k, v in r.items()} for r in rows],
-                    ["net", "layer", "shape", "kernel_us", "fp32_us",
-                     "blockwise_us", "overhead_x", "rel_quant_err",
-                     "kernel_maxdiff", "bytes_cuda", "bytes_min", "bound_us",
-                     "share_of_bound", "ok"]))
+                    ["net", "layer", "shape", "kernel_us", "im2col_us",
+                     "fp32_us", "blockwise_us", "overhead_x", "rel_quant_err",
+                     "kernel_maxdiff", "im2col_maxdiff", "bytes_cuda",
+                     "bytes_min", "fused_traffic_win_x", "traffic_ok",
+                     "bound_us", "share_of_bound", "ok"]))
     print(fmt_table([{k: (f"{v:.4g}" if isinstance(v, float) else v)
                       for k, v in r.items()} for r in lane_rows],
                     ["case", "cin_g", "groups", "g_b", "lane_packed_us",
                      "hwio_us", "bytes_cuda", "maxdiff_lane_packed",
                      "maxdiff_lane_pack_1", "ok"]))
-    print(f"kernel probe 1x8x8x3 -> 16: |kernel - blockwise| = {d:.2e} "
-          f"({'OK' if d < PROBE_LIMIT else 'FAIL'})")
+    for name, p in probes.items():
+        print(f"{name}: |{name.split('_')[0]} - blockwise| = "
+              f"{p['maxdiff']:.2e} ({'OK' if p['ok'] else 'FAIL'})")
+    wins = [r["fused_traffic_win_x"] for r in rows if r["K"] == 3]
+    print(f"fused traffic win on the 3x3 layers: min {min(wins):.3f}x "
+          f"(JAX's gate {TRAFFIC_WIN_3X3}x: "
+          f"{'OK' if min(wins) >= TRAFFIC_WIN_3X3 else 'FAIL'}, reported)")
     cold = cold_start_section()
     print(f"cold start (empty user tier, {cold['img']} px, batch "
           f"{cold['batch']}): {cold['conv_dispatches']} conv dispatches, "
@@ -298,8 +330,10 @@ def _run(dev, n_sm, img, batch, reps, rng) -> dict:
         "lane_pack_win_gate_note": "JAX's LANE_PACK_WIN models the TPU's "
         "whole-128-lane block fetches; the CUDA kernel fetches a group's "
         "channels, so the layout does not change its bytes",
-        "traffic_win_3x3": None,
-        "traffic_win_3x3_note": "needs the explicit-im2col path "
-        "pallas_im2col, which is not ported (ROADMAP B.2)",
+        "traffic_win_3x3": min(wins), "traffic_win_3x3_gate": TRAFFIC_WIN_3X3,
+        "traffic_win_3x3_ok": min(wins) >= TRAFFIC_WIN_3X3,
+        "traffic_win_3x3_note": "act+w bytes of cuda_im2col over cuda; "
+        "reported, not part of ok: the CUDA conv kernel's first-order count "
+        "reads x once per tap and column tile",
         "cold_start": cold,
         "ok": bool(ok and cold["ok"])}

@@ -15,7 +15,7 @@
 // K, read as the zero code), never by padded copies.
 //
 // What bounds it on this card: the LM dense layers it serves run at small
-// M (decode: one row per engine slot, M <= 8), where each code byte feeds
+// M (decode: one row per engine slot, M <= 16), where each code byte feeds
 // M multiply-adds.  That is far below the H100's ridge point, so the limit
 // is the bytes of codes read from device memory (3.35 TB/s).  To stream
 // them at that rate the card needs many loads in flight on every SM, the
@@ -49,7 +49,19 @@
 //     multiply-adds (plus one mask per four codes).  The table is built at
 //     block start with exactly the IEEE bits of `decode` below, one
 //     decode a lane, spread to the other lanes' copies by shuffles.
-// Left for later: tensor cores (wgmma) for prefill-sized M, TMA loads.
+// Large M, the conv's explicit-im2col route (`log_conv2d_im2col`): M is
+// B*Ho*Wo, up to 401,408 rows a product for VGG-16's first convs at batch
+// 8 and 224 px.  Row tiles run on grid y, at most 65,535 of them (524,280
+// rows at BM = 8), so the wrapper cuts a product of more rows into
+// launches of whole row tiles (`log_matmul_row_chunks`), one launch each;
+// the pointers it passes are the chunk's rows of x and y.  At such M
+// `log_matmul_geometry` gives one share of K, so no partials are written.
+// There each 8-row tile decodes its column tile's codes again, and a code
+// feeds 8 multiply-adds on the fp32 CUDA cores: the kernel is bound by
+// those operations (67 TFLOP/s), far from the tensor cores' rate; nothing
+// in the design addresses that regime yet.
+// Left for later: tensor cores (wgmma) for prefill- and conv-sized M, TMA
+// loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

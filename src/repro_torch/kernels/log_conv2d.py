@@ -1,6 +1,6 @@
 """NHWC conv2d against packed 6-bit(+sign) log-quantized weights.
 
-Counterpart of `repro.kernels.log_conv2d`.  Three implementations share one
+Counterpart of `repro.kernels.log_conv2d`.  Four implementations share one
 contract (`kernels/ops.conv2d` dispatches between them):
 
   * ``log_conv2d_fused`` — the wrapper of the hand-written CUDA kernel
@@ -13,6 +13,11 @@ contract (`kernels/ops.conv2d` dispatches between them):
     comes from the plain `log_conv2d_geometry`.  On a CPU tensor it runs
     the plain `log_conv2d_blockwise` instead; on a CUDA tensor it launches
     the kernel or raises.
+  * ``log_conv2d_im2col`` — explicit im2col onto the log_matmul kernel
+    (`csrc/log_matmul.cu`, via `log_matmul_cuda`), the counterpart of
+    `log_conv2d_pallas`: patches in device memory, block-diagonal codes
+    for grouped convs.  On a CPU tensor the product is the plain
+    `ref_log_matmul`; on a CUDA tensor it launches the kernel or raises.
   * ``log_conv2d_blockwise`` — decode, then `F.conv2d(groups=)`, converting
     NHWC ↔ NCHW only at the boundary.
   * ``log_conv2d_ref`` — explicit im2col patches × `ref.ref_log_matmul`.
@@ -200,6 +205,28 @@ def log_conv2d_ref(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
     scale = _scale_vector(scale, Cout, packed.device).reshape(1, Cout)
     out = ref_log_matmul(patches.reshape(B * Ho * Wo, -1), codes, scale, cfg,
                          out_dtype=out_dtype or x.dtype)
+    return out.reshape(B, Ho, Wo, Cout)
+
+
+def log_conv2d_im2col(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
+                      *, stride: int = 1, padding="SAME", groups: int = 1,
+                      out_dtype=None):
+    """Explicit im2col onto the log_matmul kernel: the counterpart of
+    `repro.kernels.log_conv2d.log_conv2d_pallas`.
+
+    The patches ``[B·Ho·Wo, K·K·C]`` are built in plain torch in x's dtype
+    (as JAX builds them in jnp, outside any kernel), a grouped conv takes
+    block-diagonal codes (`_block_diag_codes`), and the product runs on
+    `log_matmul_cuda`: the CUDA kernel `csrc/log_matmul.cu` for a CUDA
+    tensor, its plain `ref_log_matmul` for a CPU one.  → ``[B, Ho, Wo,
+    Cout]`` in ``out_dtype`` (x.dtype or fp32; default x.dtype)."""
+    from .log_matmul import log_matmul_cuda  # it imports this module
+    B, H, W, C, K, Cout = _check_shapes(x, packed, groups)
+    pads = normalize_padding(padding, K, stride, H, W)
+    patches, Ho, Wo = _im2col(x, K, stride, pads)
+    codes = _block_diag_codes(packed, groups).contiguous()
+    out = log_matmul_cuda(patches.reshape(B * Ho * Wo, -1), codes, scale,
+                          cfg, out_dtype=out_dtype or x.dtype)
     return out.reshape(B, Ho, Wo, Cout)
 
 
@@ -685,12 +712,22 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
                  to the image, its channels wide; it reads its K*K codes
                  and its scales once for each channel; y is written once.
 
+    ``"cuda_im2col"`` counts what the explicit-im2col route
+    (`log_conv2d_im2col`) moves: the K² tap reads of x and the write of
+    the patches; the log_matmul kernel's reads of the patches, once per
+    column tile of ``BN`` = 128, and of the block-diagonal codes, once per
+    row tile (at the launch shape of `log_matmul_geometry`), with its
+    split-K partials where it takes shares; the scale and y once.
+    ``"pallas_im2col"`` is JAX's formula for its own im2col route at its
+    default ``matmul_block`` of 128 (patches read once per 128 columns,
+    codes once per 128 rows, no scale), so both packages give the same
+    bytes for it.
+
     Accesses are counted first order: L2 hits and sub-sector waste are not
-    modelled.  JAX's ``lanes`` and ``matmul_block`` are left out: they
-    model the TPU's whole-128-lane block DMAs and the explicit im2col path
-    ``pallas_im2col`` (not ported), neither of which the CUDA kernel has;
-    it reads natural and lane-packed codes alike, so its bytes do not
-    depend on the layout."""
+    modelled.  JAX's ``lanes`` is left out: it models the TPU's
+    whole-128-lane block DMAs, which the CUDA kernel does not make; it
+    reads natural and lane-packed codes alike, so its bytes do not depend
+    on the layout."""
     pads = normalize_padding(padding, K, stride, H, W)
     Ho, Wo = _out_size(H, K, stride, pads[0]), _out_size(W, K, stride, pads[1])
     cin_g = C // groups
@@ -705,6 +742,21 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
         act, w = x_b, w_codes
     elif impl == "min":
         act, w = x_b, w_codes + 4 * Cout
+    elif impl in ("cuda_im2col", "pallas_im2col"):
+        from .log_matmul import log_matmul_geometry  # it imports this module
+        M = B * Ho * Wo
+        patch_b = M * K * K * C * act_itemsize
+        codes_bd = K * K * groups * cin_g * Cout * code_itemsize
+        if impl == "pallas_im2col":
+            act = patch_b * (2 + -(-Cout // 128))
+            w = codes_bd * -(-M // 128)
+        else:
+            g = log_matmul_geometry(M, K * K * C, Cout, n_sm)
+            act = patch_b * (2 + g["n_tiles"])
+            w = codes_bd * g["m_tiles"] + 4 * Cout
+            if g["splits"] > 1:
+                part = 2 * g["splits"] * M * Cout * 4 \
+                    + g["m_tiles"] * g["n_tiles"] * (8 * g["splits"] + 4)
     elif impl == "cuda":
         g = log_conv2d_geometry(B, H, W, C, K, Cout, stride, pads, groups,
                                 n_sm, **knob_args(config))
@@ -731,7 +783,7 @@ def conv_traffic_bytes(impl: str, B: int, H: int, W: int, C: int, K: int,
         raise ValueError(f"unknown impl {impl!r}")
     out = {"act": int(act), "w": int(w), "out": int(out_b + part),
            "act_w": int(act + w), "total": int(act + w + out_b + part)}
-    if impl == "cuda":
+    if impl in ("cuda", "cuda_im2col"):
         out["partials"] = int(part)
     return out
 

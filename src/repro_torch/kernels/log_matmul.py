@@ -6,7 +6,10 @@ replaces the TPU kernel `log_matmul_pallas`: it reads the int8 codes as
 stored, decodes eq. (8) from a table next to the multiply-adds, sums in
 fp32 and applies the per-column scale in the epilogue.  Its launch shape
 (rows and columns per block, shares of K) comes from the plain function
-`log_matmul_geometry`, which the CPU tests reach.  Its plain version is
+`log_matmul_geometry`, and the rows of each launch (one launch, or
+chunks of whole row tiles at an im2col conv's M) from
+`log_matmul_row_chunks`: both are plain functions, which the CPU tests
+reach.  Its plain version is
 `ref.ref_log_matmul` (decode, then an fp32 `torch.matmul`), which the
 wrapper runs for a CPU tensor; for a CUDA tensor it launches the kernel or
 raises.  `kernels/ops.log_matmul` dispatches between the two.
@@ -56,6 +59,20 @@ def log_matmul_geometry(M: int, K: int, N: int, n_sm: int = 132) -> dict:
             "blocks": m_tiles * n_tiles * splits}
 
 
+def log_matmul_row_chunks(M: int, K: int, N: int,
+                          n_sm: int = 132) -> list[tuple[int, int]]:
+    """The rows ``[r0, r1)`` of each launch of an ``[M, K] @ [K, N]``
+    product.  The kernel's grid holds its row tiles on grid y, at most
+    ``_GRID_YZ_MAX`` of them, so a product of more rows (an im2col conv:
+    M = B·Ho·Wo, above 524,280 rows at 8 rows a tile) is cut into the
+    fewest launches of near-equal whole row tiles; below that it is one
+    launch.  Each chunk keeps ``bm`` = 8 and, at such M, one share of K."""
+    bm = log_matmul_geometry(M, K, N, n_sm)["bm"]
+    tiles = -(-M // bm)
+    per = -(-tiles // -(-tiles // _GRID_YZ_MAX)) * bm
+    return [(r0, min(M, r0 + per)) for r0 in range(0, M, per)]
+
+
 def _kernel_fn():
     fn = _build.load("log_matmul").log_matmul_launch
     if fn.argtypes is None:
@@ -75,11 +92,17 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
     contiguous and is read in place, never copied.  scale: scalar or
     per-column (``[1, N]`` or ``[N]``).
 
+    Any M up to 2^31 - 1: the LM layers' decode rows (M ≤ 16) and the
+    im2col conv's patch rows (M = B·Ho·Wo, 401,408 for VGG-16's first
+    convs at batch 8 and 224 px) alike.  Above ``_GRID_YZ_MAX`` row tiles
+    the rows are cut into chunks (`log_matmul_row_chunks`), one launch
+    each, each counted.
+
     A CUDA tensor launches the kernel (and adds one to
-    ``log_matmul_cuda.launches``) or raises; a CPU tensor runs the plain
-    `ref_log_matmul`.  Grad guard: with grad mode on, an input that
-    requires grad raises on every device (`_build.refuse_grad`), since the
-    kernel's output has no backward."""
+    ``log_matmul_cuda.launches`` a launch) or raises; a CPU tensor runs
+    the plain `ref_log_matmul`.  Grad guard: with grad mode on, an input
+    that requires grad raises on every device (`_build.refuse_grad`),
+    since the kernel's output has no backward."""
     _build.refuse_grad("log_matmul_cuda", x, scale)
     if x.ndim != 2 or packed.ndim != 2 or x.shape[1] != packed.shape[0]:
         raise ValueError(f"log_matmul_cuda takes x [M, K] and codes [K, N], "
@@ -114,25 +137,29 @@ def log_matmul_cuda(x, packed, scale, cfg: LogQuantConfig = DEFAULT_CFG,
                          f"{tuple(packed.shape)}")
     if max(M, N) > _I32_MAX or K > _I32_MAX - 4 * STAGE_ROWS[4]:
         raise ValueError("shape too large for the kernel's indices")
-    geo = log_matmul_geometry(M, K, N, sm_count(x.device.index))
-    if geo["m_tiles"] > _GRID_YZ_MAX or geo["splits"] > _GRID_YZ_MAX:
-        raise ValueError("shape too large for the kernel's launch grid")
+    n_sm = sm_count(x.device.index)
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    part = tickets = None
-    if geo["splits"] > 1:
-        part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
-                           device=x.device)
-        tickets = split_tickets(x.device, geo["m_tiles"] * geo["n_tiles"])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel_fn()(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-                       y.data_ptr(), part.data_ptr() if part is not None
-                       else None, tickets.data_ptr() if tickets is not None
-                       else None, M, K, N, cfg.bits, cfg.frac_bits,
-                       _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-                       geo["bm"], geo["k_per_split"], geo["splits"], stream)
-    if err != 0:
-        raise RuntimeError(f"log_matmul CUDA launch failed: cudaError {err}")
-    log_matmul_cuda.launches += 1
+    for r0, r1 in log_matmul_row_chunks(M, K, N, n_sm):
+        geo = log_matmul_geometry(r1 - r0, K, N, n_sm)
+        part = tickets = None
+        if geo["splits"] > 1:
+            part = torch.empty((geo["splits"], r1 - r0, N),
+                               dtype=torch.float32, device=x.device)
+            tickets = split_tickets(x.device,
+                                    geo["m_tiles"] * geo["n_tiles"])
+        err = _kernel_fn()(
+            x[r0:r1].data_ptr(), packed.data_ptr(), scale.data_ptr(),
+            y[r0:r1].data_ptr(),
+            part.data_ptr() if part is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            r1 - r0, K, N, cfg.bits, cfg.frac_bits, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[out_dtype], geo["bm"], geo["k_per_split"],
+            geo["splits"], stream)
+        if err != 0:
+            raise RuntimeError(f"log_matmul CUDA launch failed: cudaError "
+                               f"{err}")
+        log_matmul_cuda.launches += 1
     return y
 
 

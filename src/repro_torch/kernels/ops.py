@@ -6,6 +6,8 @@ Every op takes the dispatch knob ``impl=``, resolved by `resolve_impl`:
   "cuda"      — the op's hand-written CUDA kernel (`log_matmul_cuda`,
                 `log_conv2d_fused`, `flash_attention_cuda`, `wkv6_cuda`);
                 on a CPU tensor its wrapper runs the op's plain version
+  "cuda_im2col" — conv2d only: explicit im2col onto `log_matmul_cuda`
+                (JAX's "pallas_im2col")
   "blockwise" — plain PyTorch: decode then matmul, decode then `F.conv2d`,
                 online softmax over kv chunks, the chunked WKV closed form
   "ref"       — the full-materialisation oracles (tests)
@@ -62,14 +64,15 @@ from .flash_attention import (_aligned16, attention_traffic_bytes,
                               takes_mma)
 from .log_conv2d import (conv_traffic_bytes, knob_args, lane_unpack_codes,
                          log_conv2d_blockwise, log_conv2d_fused,
-                         log_conv2d_geometry, log_conv2d_ref, sm_count)
+                         log_conv2d_geometry, log_conv2d_im2col,
+                         log_conv2d_ref, sm_count)
 from .log_matmul import log_matmul_cuda
 from .ref import positions, ref_attention, ref_log_matmul, ref_wkv6
 from .wkv6 import wkv6_chunked, wkv6_cuda
 
 _OP_IMPLS = {
     "log_matmul": ("cuda", "blockwise", "ref"),
-    "conv2d": ("cuda", "blockwise", "ref"),
+    "conv2d": ("cuda", "cuda_im2col", "blockwise", "ref"),
     "attention": ("cuda", "blockwise", "ref"),
     "wkv6": ("cuda", "blockwise", "ref"),
 }
@@ -281,11 +284,14 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
     measures the knob of the conv's path on the card first and persists
     the winner (a no-op, with a one-shot warning, where ``config`` pins
     it).  On a CPU tensor the knobs are resolved and checked, and the
-    plain version runs."""
-    if impl == "pallas_im2col":
-        raise ValueError("conv2d impl 'pallas_im2col' (explicit im2col onto "
-                         "the log_matmul kernel) is not ported (ROADMAP.md "
-                         "queue B, item 2)")
+    plain version runs.
+
+    ``impl="cuda_im2col"`` (JAX's ``"pallas_im2col"``) builds the patches
+    in device memory and runs every conv, grouped ones on block-diagonal
+    codes, on the log_matmul kernel (`log_conv2d_im2col`); it has no
+    launch knob, so no autotune lookup, and a ``lane_packed`` layout is
+    unpacked to HWIO first.  On a CPU tensor its product is the plain
+    `ref_log_matmul`."""
     if not isinstance(qt, QuantizedTensor):
         qt = quantize_tensor(torch.as_tensor(qt, device=x.device),
                              qcfg or LogQuantConfig())
@@ -320,7 +326,8 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
             explicit, autotune, lane)
         fn = functools.partial(log_conv2d_fused, lane=lane, config=knobs)
     else:
-        fn = {"ref": log_conv2d_ref, "blockwise": log_conv2d_blockwise}[impl]
+        fn = {"ref": log_conv2d_ref, "blockwise": log_conv2d_blockwise,
+              "cuda_im2col": log_conv2d_im2col}[impl]
 
     def call(on_launch=None):
         # the kernel calls on_launch right before its launch, where the
@@ -328,9 +335,10 @@ def conv2d(x, qt, *, stride: int = 1, padding="SAME", groups: int = 1,
         y = (fn(x, packed, qt.scale, qt.cfg, **kw) if on_launch is None
              else fn(x, packed, qt.scale, qt.cfg, on_launch=on_launch, **kw))
         return y if out_dtype is None else y.to(out_dtype)
+    # the im2col route multiplies block-diagonal codes: all C per output
+    cin = C if impl == "cuda_im2col" else C // groups
     call = _counted("conv2d", call, (x, packed, qt.scale),
-                    lambda y: (y.numel() * (2 * K * K * (C // groups) + 1),
-                               0))
+                    lambda y: (y.numel() * (2 * K * K * cin + 1), 0))
     if not _kprof.PROFILER.enabled():
         return call()
     n_sm = sm_count(x.device.index) if x.is_cuda else 132

@@ -149,22 +149,35 @@ def _device(table):
 def build_prefill_step(cfg, shape_name: str, mesh, *,
                        cache_dtype=torch.bfloat16):
     """fn(params, inputs_dict) -> (last_hidden, cache).  The cache is made
-    inside the step, as in JAX, and laid out by the decode step's cache
-    shardings when the params are DTensors."""
+    inside the step, as in JAX.  When the params are DTensors it is laid
+    out by the decode step's cache shardings, and each rank makes only its
+    own shard of each leaf (`sharding.zeros`)."""
     sharding.set_mesh(mesh)
     step_kind, specs = input_specs(cfg, shape_name)
     sh = SHAPES[shape_name]
     B, S = sh["global_batch"], sh["seq_len"]
+    # the cache's layout by batch, made outside the step: its abstract
+    # leaves are meta tensors at the global shapes
+    layouts = {}
+
+    def layout(b):
+        if b not in layouts:
+            cache_abs, cache_sh = _cache_shardings(cfg, mesh, b, S,
+                                                   cache_dtype)
+            layouts[b] = ({**cache_abs, "index": 0}, cache_sh)
+        return layouts[b]
+    if mesh is not None:
+        layout(B)
 
     def step(params, batch):
         inputs = batch["tokens"] if cfg.embed_inputs else batch["embeds"]
         Bi = inputs.shape[0]
         table = params["embed"]["table"]
-        cache = transformer.init_cache(cfg, Bi, S, cache_dtype,
-                                       device=_device(table))
         if sharding.is_sharded(table):
-            cache = sharding.place(cache, _cache_shardings(
-                cfg, mesh, Bi, S, cache_dtype)[1])
+            cache = sharding.zeros(*layout(Bi), _device(table))
+        else:
+            cache = transformer.init_cache(cfg, Bi, S, cache_dtype,
+                                           device=_device(table))
         with sharding.sharded_region():
             return transformer.prefill(params, inputs, cfg, cache,
                                        positions=batch.get("positions"))

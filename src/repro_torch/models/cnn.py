@@ -8,10 +8,12 @@ ResNet's blocks are ``(block, stride)`` tuples).  Two knobs:
 
   * ``quant="logq6"`` inserts `fake_log_quant` (straight-through) on conv
     weights and post-ReLU activations, the QAT path;
-  * ``conv_impl="cuda"|"blockwise"|"ref"|"auto"`` routes every conv through
-    `kernels/ops.conv2d` on packed int8 log codes (packed once at load by
-    `serving.quantize.quantize_cnn_params`, or per call), the deployed
-    numerics.  "auto" runs the CUDA kernel on the card.
+  * ``conv_impl="cuda"|"cuda_im2col"|"blockwise"|"ref"|"auto"`` routes
+    every conv through `kernels/ops.conv2d` on packed int8 log codes
+    (packed once at load by `serving.quantize.quantize_cnn_params`, or per
+    call), the deployed numerics.  "auto" runs the CUDA conv kernel on the
+    card; "cuda_im2col" (JAX's "pallas_im2col") runs every conv as explicit
+    im2col patches on the log_matmul kernel.
 
 `make_cnn` builds on the card unless the caller passes ``device="cpu"``.
 """

@@ -459,6 +459,27 @@ def place(tree, shardings):
     return tree_map2(leaf, tree, shardings)
 
 
+def zeros(tree, shardings, device):
+    """A DTensor of zeros for each tensor of ``tree`` (abstract leaves: only
+    their shapes and dtypes are read), laid out by its `NamedSharding` in
+    ``shardings``: each rank allocates its own shard on ``device`` and no
+    more, where `place` would slice a global tensor that every rank holds.
+    Leaves that are not tensors stay as they are."""
+    def leaf(x, sh):
+        if not torch.is_tensor(x):
+            return x
+        shape, _ = compute_local_shape_and_global_offset(
+            tuple(x.shape), sh.mesh, list(sh.placements))
+        local = torch.zeros(shape, dtype=x.dtype, device=device)
+        stride = [1] * len(x.shape)
+        for d in range(len(stride) - 2, -1, -1):
+            stride[d] = stride[d + 1] * x.shape[d + 1]
+        return DTensor.from_local(local, sh.mesh, list(sh.placements),
+                                  run_check=False, shape=x.shape,
+                                  stride=tuple(stride))
+    return tree_map2(leaf, tree, shardings)
+
+
 def local_slice(global_shape, sharding: NamedSharding) -> tuple:
     """The index (a tuple of slices) of this rank's shard of a tensor of
     ``global_shape`` laid out by ``sharding``."""

@@ -480,7 +480,7 @@ def test_resolve_impl_follows_the_tensor_device():
     with pytest.raises(ValueError, match="unknown conv2d impl"):
         tops.resolve_impl("conv2d", "pallas", torch.device("cpu"))
     x = torch.zeros(1, 4, 4, 2)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown conv2d impl"):
         tops.conv2d(x, torch.zeros(3, 3, 2, 2), impl="pallas_im2col")
 
 

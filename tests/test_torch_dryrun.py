@@ -15,7 +15,7 @@ by one fixture:
     directory that `analysis.report` and `analysis.roofline` render; the
     count at 1, 2 and 4 layers; `perf.run_variant`; the mask-free
     `write_rows` on ``meta`` shards; the prefill cache on the params'
-    device;
+    device, and a prefill's temporaries against its global cache;
   * the port on 4 gloo ranks of a (1, 4) mesh: a config whose head counts
     (6 query, 2 KV) the ``model`` axis does not divide, held against the
     one-process run computed here; on a 2×2 mesh, an MoE train step with
@@ -174,6 +174,16 @@ with real_group(8):
                                        for t in dr._tensors(cache)}})
     except Exception as e:
         res["prefill_cache"] = f"{{type(e).__name__}}: {{e}}"
+
+    # a prefill cell whose cache outweighs its activations: 8 layers
+    base.SHAPES["t_prefill_cache"] = dict(seq_len=2048, global_batch=8,
+                                          step="prefill")
+    cfg = get_config("gemma-2b").reduced(**REDUCED, n_layers=8)
+    cache = transformer.abstract_cache(cfg, 8, 2048)
+    res["prefill_memory"] = dict(
+        dr._compile(cfg, "t_prefill_cache", mesh)[1].memory,
+        global_cache_bytes=sum(t.numel() * t.element_size()
+                               for t in dr._tensors(cache)))
 json.dump(res, open(res_path, "w"))
 # records, and the two renderers on their directory
 for shape in {shapes!r}:
@@ -567,3 +577,11 @@ def test_prefill_cache_on_the_params_device(runs):
     """Meta params on a CPU mesh make a meta cache."""
     assert runs["port"]["prefill_cache"] == ["meta"], \
         runs["port"]["prefill_cache"]
+
+
+def test_prefill_builds_only_the_ranks_cache_shard(runs):
+    """On a (2, 4) mesh a rank's prefill holds less than the global cache
+    in temporaries: each rank makes its own shard of the cache, where a
+    global cache made and then sliced would count in full."""
+    mem = runs["port"]["prefill_memory"]
+    assert mem["temp_bytes"] < mem["global_cache_bytes"], mem

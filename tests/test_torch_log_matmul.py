@@ -241,3 +241,21 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
             assert got.dtype == dtype and got.shape == want.shape
             tol = rel * (float(want.float().abs().max()) + 1)
             assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_at_im2col_rows(cuda_device):
+    """An im2col conv's product above the grid's 524,280 rows (VGG-16's
+    first conv at batch 11, 224 px: 551,936 rows) runs as two launches of
+    whole row tiles and matches `ref_log_matmul`."""
+    dev = cuda_device
+    x, w = _mk(551_936, 27, 64)
+    qt = tlq.quantize_tensor(torch.from_numpy(w).to(dev))
+    xt = torch.from_numpy(x).to(dev)
+    before = log_matmul_cuda.launches
+    got = log_matmul_cuda(xt, qt.packed, qt.scale)
+    torch.cuda.synchronize()
+    assert log_matmul_cuda.launches == before + 2
+    want = ref_log_matmul(xt, qt.packed, qt.scale)
+    tol = 1e-4 * (float(want.abs().max()) + 1)
+    assert float((got - want).abs().max()) <= tol
