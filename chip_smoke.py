@@ -351,7 +351,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores, HBM3
 from repro_torch.analysis.roofline import (  # noqa: E402
     HBM_BW as PEAK_HBM_BYTES, PEAK_FLOPS as PEAK_BF16_FLOPS, PEAK_FP32_FLOPS)
-from repro_torch.benchmarks.common import retake_wait  # noqa: E402
+from repro_torch.benchmarks.common import (device_events,  # noqa: E402
+                                            retake_wait)
 
 BATCH, IMG, N_CLASSES, SEED = 8, 224, 1000, 0
 CONVS_PER_NET = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 36,
@@ -457,7 +458,6 @@ def device_kernels(fn, reps: int = 1,
     `torch.profiler` trace taken after one warm-up call.  With ``opener``
     the window opens with a throwaway fill kernel (named ``FillFunctor``),
     since the profiler may drop an event at its edge."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -469,8 +469,8 @@ def device_kernels(fn, reps: int = 1,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us() / 1e3)
+            for e in device_events(prof)]
 
 
 def profile_forward(fn) -> dict:

@@ -45,11 +45,20 @@ def bound_us(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOPS
     return max(b_us, f_us), ("operations" if f_us >= b_us else "bytes")
 
 
+def device_events(prof) -> list:
+    """The kernels, copies and memsets of a finished `torch.profiler`
+    window.  The profiler also gives the device side of each user range
+    (`torch.profiler.record_function`, an `obs.trace` span) the CUDA
+    device type; those ranges are left out."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _device_kernels(fn, reps: int) -> list[float]:
     """µs of each CUDA kernel of ``reps`` calls of ``fn`` in one
     `torch.profiler` window, which opens with a throwaway fill kernel (the
     profiler may drop an event at its edge; the fill is left out)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -58,9 +67,8 @@ def _device_kernels(fn, reps: int) -> list[float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and "FillFunctor" not in e.name]
+    return [e.time_range.elapsed_us() for e in device_events(prof)
+            if "FillFunctor" not in e.name]
 
 
 def device_us(fn, device, reps: int = 5) -> float:

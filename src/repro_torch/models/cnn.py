@@ -16,6 +16,13 @@ ResNet's blocks are ``(block, stride)`` tuples).  Two knobs:
     im2col patches on the log_matmul kernel.
 
 `make_cnn` builds on the card unless the caller passes ``device="cpu"``.
+
+Each forward is marked with `obs.trace` spans, one name a layer kind and
+the same in all four nets: ``cnn.forward`` (args ``net``, ``batch``)
+around the whole forward, and inside it ``cnn.conv``, ``cnn.requant``,
+``cnn.pool``, ``cnn.shortcut``, ``cnn.concat`` and ``cnn.head``, which
+do not nest; every op of the forward runs inside exactly one of them.
+Under `torch.profiler` they land in its trace beside the device kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        fake_log_quant, quantize_tensor)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.log_conv2d import conv_nhwc, normalize_padding
+from repro_torch.obs import trace
 
 # ---------------------------------------------------------------------------
 # quant-aware primitives
@@ -58,18 +66,20 @@ def conv2d(p, x, *, stride=1, pad="SAME", quant=None, qcfg=LOGQ_DEFAULT,
             B=int(x.shape[0]), H=int(x.shape[1]), W=int(x.shape[2]),
             C=int(x.shape[3]), K=int(hwio[0]), Cout=int(hwio[-1]),
             stride=int(stride), padding=pad, groups=int(groups)))
-    if conv_impl is not None or isinstance(w, QuantizedTensor):
-        qt = w if isinstance(w, QuantizedTensor) else quantize_tensor(w, qcfg)
-        y = kops.conv2d(x, qt, stride=stride, padding=pad, groups=groups,
-                        impl=conv_impl or "auto", out_dtype=x.dtype)
-    else:
-        w = _maybe_fq(w, quant, qcfg)
-        pads = normalize_padding(pad, w.shape[0], stride, x.shape[1],
-                                 x.shape[2])
-        y = conv_nhwc(x, w, stride=stride, pads=pads, groups=groups)
-    if "b" in p:
-        y = y + p["b"]
-    return y
+    with trace.span("cnn.conv"):
+        if conv_impl is not None or isinstance(w, QuantizedTensor):
+            qt = (w if isinstance(w, QuantizedTensor)
+                  else quantize_tensor(w, qcfg))
+            y = kops.conv2d(x, qt, stride=stride, padding=pad, groups=groups,
+                            impl=conv_impl or "auto", out_dtype=x.dtype)
+        else:
+            w = _maybe_fq(w, quant, qcfg)
+            pads = normalize_padding(pad, w.shape[0], stride, x.shape[1],
+                                     x.shape[2])
+            y = conv_nhwc(x, w, stride=stride, pads=pads, groups=groups)
+        if "b" in p:
+            y = y + p["b"]
+        return y
 
 
 def _randn(gen, shape, device):
@@ -94,19 +104,38 @@ def _head_init(gen, c, n_classes, device):
 def relu_q(x, quant=None, qcfg=LOGQ_DEFAULT):
     """ReLU then (optionally) log-requantize: the paper's post-processing
     block (ReLU + log-table requantization before writing back to DDR)."""
-    x = torch.relu(x)
-    return _maybe_fq(x, quant, qcfg) if quant == "logq6" else x
+    with trace.span("cnn.requant"):
+        x = torch.relu(x)
+        return _maybe_fq(x, quant, qcfg) if quant == "logq6" else x
 
 
 def avgpool_global(x):
-    return x.mean(dim=(1, 2))
+    with trace.span("cnn.pool"):
+        return x.mean(dim=(1, 2))
 
 
 def maxpool(x, k=2, s=2):
     """VALID max pooling (a window never overhangs the edge, as XLA's
     `reduce_window` with a −inf init)."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), k, s)
-    return y.permute(0, 2, 3, 1).contiguous()
+    with trace.span("cnn.pool"):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), k, s)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _head(p, x):
+    with trace.span("cnn.head"):
+        return x @ p["w"] + p["b"]
+
+
+def _forward_span(net: str):
+    """Decorator: a net's ``*_apply`` inside its ``cnn.forward`` span."""
+    def deco(apply):
+        @functools.wraps(apply)
+        def spanned(params, x, **kw):
+            with trace.span("cnn.forward", net=net, batch=int(x.shape[0])):
+                return apply(params, x, **kw)
+        return spanned
+    return deco
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +159,7 @@ def vgg16_init(gen, *, n_classes=1000, cin=3, width_mult=1.0, device="cpu"):
     return {"convs": params, "head": _head_init(gen, c, n_classes, device)}
 
 
+@_forward_span("vgg16")
 def vgg16_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT, conv_impl=None):
     cv = functools.partial(conv2d, quant=quant, qcfg=qcfg,
                            conv_impl=conv_impl)
@@ -137,8 +167,7 @@ def vgg16_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT, conv_impl=None):
         x = relu_q(cv(p, x), quant, qcfg)
         if pool and min(x.shape[1], x.shape[2]) >= 2:
             x = maxpool(x)
-    x = avgpool_global(x)
-    return x @ params["head"]["w"] + params["head"]["b"]
+    return _head(params["head"], avgpool_global(x))
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +193,7 @@ def mobilenet_v1_init(gen, *, n_classes=1000, cin=3, width_mult=1.0,
     return params
 
 
+@_forward_span("mobilenet_v1")
 def mobilenet_v1_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
                        conv_impl=None):
     cv = functools.partial(conv2d, quant=quant, qcfg=qcfg,
@@ -173,8 +203,7 @@ def mobilenet_v1_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
         c = x.shape[-1]
         x = relu_q(cv(pair["dw"], x, stride=stride, groups=c), quant, qcfg)
         x = relu_q(cv(pair["pw"], x), quant, qcfg)
-    x = avgpool_global(x)
-    return x @ params["head"]["w"] + params["head"]["b"]
+    return _head(params["head"], avgpool_global(x))
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +234,7 @@ def resnet34_init(gen, *, n_classes=1000, cin=3, width_mult=1.0,
     return params
 
 
+@_forward_span("resnet34")
 def resnet34_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
                    conv_impl=None):
     cv = functools.partial(conv2d, quant=quant, qcfg=qcfg,
@@ -217,9 +247,10 @@ def resnet34_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
             y = relu_q(cv(blk["c1"], x, stride=st), quant, qcfg)
             y = cv(blk["c2"], y)
             sc = cv(blk["proj"], x, stride=st) if "proj" in blk else x
-            x = relu_q(y + sc, quant, qcfg)
-    x = avgpool_global(x)
-    return x @ params["head"]["w"] + params["head"]["b"]
+            with trace.span("cnn.shortcut"):
+                y = y + sc
+            x = relu_q(y, quant, qcfg)
+    return _head(params["head"], avgpool_global(x))
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +275,7 @@ def squeezenet_init(gen, *, n_classes=1000, cin=3, width_mult=1.0,
     return params
 
 
+@_forward_span("squeezenet")
 def squeezenet_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
                      conv_impl=None):
     cv = functools.partial(conv2d, quant=quant, qcfg=qcfg,
@@ -257,7 +289,8 @@ def squeezenet_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
         s = relu_q(cv(fire["squeeze"], x), quant, qcfg)
         e1 = relu_q(cv(fire["e1"], s), quant, qcfg)
         e3 = relu_q(cv(fire["e3"], s), quant, qcfg)
-        x = torch.cat([e1, e3], dim=-1)
+        with trace.span("cnn.concat"):
+            x = torch.cat([e1, e3], dim=-1)
     x = relu_q(cv(params["final"], x), quant, qcfg)
     return avgpool_global(x)
 

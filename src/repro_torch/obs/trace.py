@@ -1,17 +1,28 @@
-"""Low-overhead span tracer: ring buffer → Chrome-trace/Perfetto JSON.
+"""Low-overhead span tracer: ring buffer → Chrome-trace/Perfetto JSON,
+bridged to `torch.profiler`.
 
 The paper argues NeuroMAX entirely through measurement (per-layer latency
 and utilization, §V); this module is the live-measurement half of that
 story — every span is a `(name, t0, dur, tid, args)` tuple in a bounded
 thread-safe ring buffer, exported in the Chrome ``traceEvents`` format
-that both ``chrome://tracing`` and Perfetto load directly.
+that both ``chrome://tracing`` and Perfetto load directly.  The ring
+buffer stamps spans with `time.perf_counter_ns`.
 
-Gating: tracing is OFF unless ``REPRO_TRACE=1`` is set (or
+While a `torch.profiler` records on the calling thread, `span()` also
+opens a profiler range of the same name (the name only; ``args`` stay in
+the ring buffer).  It lands in the profiler's Chrome trace as a
+``user_annotation`` event on the profiler's clock, the clock of its
+``cuda_runtime`` launches and device kernels, so a span can be laid over
+the device timeline.  The ring buffer's export cannot: its clock is
+another.
+
+Gating: the ring buffer is OFF unless ``REPRO_TRACE=1`` is set (or
 `set_enabled(True)` is called programmatically — `set_enabled(None)`
-defers back to the env).  When disabled, `span()` returns one shared
-no-op context manager and `instant()` returns immediately, so the cost
-on a hot path is a single attribute load + env check (~100 ns) — cheap
-enough to leave call sites unconditional.
+defers back to the env); the profiler bridge is on exactly while a
+profiler records.  With both off, `span()` returns one shared no-op
+context manager after one C-level profiler check and one env check, and
+`instant()` returns after the env check — cheap enough to leave call
+sites unconditional.
 
     from repro_torch.obs import trace
     with trace.span("prefill", uid=3):
@@ -32,6 +43,15 @@ import threading
 import time
 from collections import deque
 from functools import wraps
+
+from torch._C._autograd import _profiler_enabled
+# a profiler range in the user scope (a ``user_annotation`` in the Chrome
+# trace), as `torch.profiler.record_function` opens, without its Python
+# and dispatcher layers
+from torch._C._autograd import \
+    _record_function_with_args_enter as _range_enter
+from torch._C._autograd import \
+    _record_function_with_args_exit as _range_exit
 
 _DEFAULT_CAPACITY = 65536
 _OFF = ("", "0", "false", "off")
@@ -55,11 +75,14 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "name", "args", "_t0")
+    """A span in the ring buffer (``tracer`` set), in the profiler
+    (``profiled``), or in both."""
+    __slots__ = ("_tracer", "name", "args", "_t0", "_profiled", "_range")
 
-    def __init__(self, tracer, name, args):
+    def __init__(self, tracer, name, args, profiled=False):
         self._tracer, self.name, self.args = tracer, name, args
         self._t0 = 0
+        self._profiled, self._range = profiled, None
 
     def set(self, **args):
         """Attach attributes mid-span (rendered under `args` in the UI)."""
@@ -67,13 +90,20 @@ class _Span:
         return self
 
     def __enter__(self):
-        self._t0 = time.perf_counter_ns()
+        if self._profiled:
+            self._range = _range_enter(self.name)
+        if self._tracer is not None:
+            self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        t1 = time.perf_counter_ns()
-        self._tracer._push(("X", self.name, self._t0, t1 - self._t0,
-                            threading.get_ident(), self.args or None))
+        if self._tracer is not None:
+            t1 = time.perf_counter_ns()
+            self._tracer._push(("X", self.name, self._t0, t1 - self._t0,
+                                threading.get_ident(), self.args or None))
+        if self._range is not None:
+            _range_exit(self._range)
+            self._range = None
         return False
 
 
@@ -97,7 +127,12 @@ class Tracer:
 
     # ----------------------------------------------------------- recording
     def span(self, name: str, **args):
-        """Context manager timing a block; no-op (shared object) when off."""
+        """Context manager timing a block, in the ring buffer when the
+        tracer is on and in the recording profiler when one records;
+        no-op (shared object) when neither."""
+        if _profiler_enabled():
+            return _Span(self if self.enabled() else None, name, args,
+                         profiled=True)
         if not self.enabled():
             return _NULL_SPAN
         return _Span(self, name, args)
@@ -179,8 +214,6 @@ def traced(name: str | None = None, **static_args):
 
         @wraps(fn)
         def wrapper(*a, **kw):
-            if not TRACER.enabled():
-                return fn(*a, **kw)
             with TRACER.span(label, **static_args):
                 return fn(*a, **kw)
         return wrapper

@@ -126,6 +126,103 @@ def test_traced_decorator():
     assert calls == [3, 4]
 
 
+def _profiled(fn, tmp_path):
+    """``fn()`` under a CPU `torch.profiler` → the Chrome trace's complete
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+def _inside(e, outer):
+    return (outer["ts"] <= e["ts"]
+            and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_span_lands_in_the_profiler_as_a_user_annotation(tmp_path):
+    """Under a recording profiler a span is a ``user_annotation`` around the
+    ops run inside it, on the profiler's clock; the ring buffer, off, stays
+    empty, and once the profiler stops the span is the null span again."""
+    x = torch.ones(16)
+
+    def work():
+        with obs_trace.span("outer", uid=1):
+            torch.relu(x - 0.5)
+        torch.exp(x)
+
+    evs = _profiled(work, tmp_path)
+    (outer,) = [e for e in evs if e["name"] == "outer"]
+    assert outer["cat"] == "user_annotation"
+    ops = {e["name"] for e in evs if e["cat"] == "cpu_op"}
+    inner = {e["name"] for e in evs
+             if e["cat"] == "cpu_op" and _inside(e, outer)}
+    assert {"aten::relu", "aten::sub"} <= inner
+    assert "aten::exp" in ops - inner
+    assert all(e["tid"] == outer["tid"] for e in evs
+               if e["cat"] == "cpu_op" and _inside(e, outer))
+    assert obs_trace.events() == []
+    assert obs_trace.span("after") is obs_trace.span("again")
+
+
+def test_span_records_in_the_ring_buffer_and_the_profiler(tmp_path,
+                                                          monkeypatch):
+    monkeypatch.setenv("REPRO_TRACE", "1")
+
+    def work():
+        with obs_trace.span("both", uid=2) as sp:
+            sp.set(rows=3)
+            torch.ones(4).sum()
+
+    evs = _profiled(work, tmp_path)
+    assert [e["cat"] for e in evs if e["name"] == "both"] == \
+        ["user_annotation"]
+    (ev,) = obs_trace.events()
+    assert ev[0] == "X" and ev[1] == "both" and ev[3] > 0
+    assert ev[5] == {"uid": 2, "rows": 3}
+    obs_trace.set_enabled(False)   # the override reaches the ring alone
+    evs = _profiled(work, tmp_path)
+    assert [e["cat"] for e in evs if e["name"] == "both"] == \
+        ["user_annotation"]
+    assert len(obs_trace.events()) == 1
+
+
+def test_device_timers_leave_out_the_spans_device_side():
+    """A span under a profiler is a user range, and on the card the
+    profiler types the range's device side as CUDA: the device timers keep
+    the kernels, copies and memsets only."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.benchmarks.common import device_events
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs_trace.span("cnn.forward"):
+            torch.ones(3).relu()
+    (span,) = [e for e in prof.events() if e.name == "cnn.forward"]
+    assert span.is_user_annotation
+    assert not any(e.is_user_annotation for e in prof.events()
+                   if e.name.startswith("aten::"))
+
+    def ev(name, device, annotation):
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=annotation)
+
+    card = SimpleNamespace(events=lambda: [
+        ev("cnn.forward", DeviceType.CPU, True),
+        ev("cnn.forward", DeviceType.CUDA, True),
+        ev("aten::relu", DeviceType.CPU, False),
+        ev("log_conv2d_dense", DeviceType.CUDA, False),
+        ev("Memcpy HtoD", DeviceType.CUDA, False)])
+    assert [e.name for e in device_events(card)] == \
+        ["log_conv2d_dense", "Memcpy HtoD"]
+
+
 # ------------------------------------------------------------------ metrics
 
 
