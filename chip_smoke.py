@@ -31,7 +31,14 @@ goes wrong:
      conv count (13/27/36/26); in a second forward each conv's output must
      match ``"blockwise"`` on the same input, and the logits must match the
      ``"blockwise"`` forward's.  Each net's forward is timed and profiled
-     (device busy time, idle share, top kernels);
+     (device busy time, idle share, top kernels, the log requantization
+     kernel's busy ms).  Then the log requantization kernel
+     (`kernels/log_requant`, `phase_requant`) on every `relu_q` input of
+     one forward of each net: every call counted as
+     ``requant_calls{path="cuda"}`` and launching two kernels, values and
+     int8 codes equal to the plain ops bit for bit, and its device ms
+     over the net's calls beside the plain ops' ms and the byte bound (12
+     bytes an element at 3.35 TB/s);
   6. per-conv times at batch 8 over the 61 distinct shapes: the kernel (at
      the packaged autotune tier's knobs, which the main path launches;
      where they differ, also at the heuristic's) and the library call (`F.conv2d` on weights decoded in advance, the same
@@ -486,6 +493,8 @@ def profile_forward(fn) -> dict:
             "device_kernels": len(kernels), "top_kernels_ms": top,
             "attention_ms": sum(ms for name, ms in by_name.items()
                                 if "attn_" in name),
+            "requant_ms": sum(ms for name, ms in by_name.items()
+                              if "requant_" in name),
             "log_matmul_ms": sum(ms for name, ms in by_name.items()
                                  if "log_matmul" in name)}
 
@@ -804,7 +813,8 @@ def phase_slice(dev) -> tuple[list, int]:
                        f"({row['images_per_s']:.1f} images/s), blockwise "
                        f"forward {row['blockwise_forward_ms']:.3f} ms; "
                        f"profiled: {row['device_kernels']} device kernels, "
-                       f"busy {row['device_busy_ms']:.3f} ms, idle share "
+                       f"busy {row['device_busy_ms']:.3f} ms (log "
+                       f"requantization {row['requant_ms']:.3f}), idle share "
                        f"{row['idle_share']}, top {row['top_kernels_ms'][:3]}")
             rows.append(row)
             print(f"slice {name:12s} quant={quant}: launches {launched}, "
@@ -813,6 +823,95 @@ def phase_slice(dev) -> tuple[list, int]:
                   f"{row['max_abs_logit']:.3e}, top-1 agree "
                   f"{row['top1_agree']:.3f}){msg}")
     return rows, main_launches
+
+
+REQUANT_BYTES = 12   # an element read by both passes and written once
+
+
+def phase_requant(dev) -> dict:
+    """The log requantization kernel on every `relu_q` input of one
+    forward of each net (batch 8, 224 px, the main path's packed weights):
+    the counter and the launches over the forward, each input through the
+    kernel and the plain ops (values and codes bit for bit), the kernel's
+    device ms over the net's calls (torch.profiler) with CUDA events
+    beside it, the plain ops' ms (CUDA events) and the byte bound."""
+    from repro_torch.kernels import log_requant as lr
+    from repro_torch.models import cnn
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.serving.quantize import quantize_cnn_params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
+
+    def moves():
+        return (REGISTRY.counter("requant_calls", path="cuda").value,
+                REGISTRY.counter("requant_calls", path="plain").value,
+                lr.log_requant_cuda.launches)
+
+    rows, relu_q = {}, cnn.relu_q
+    for name in cnn.CNNS:
+        params, _ = cnn.make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)
+        packed = quantize_cnn_params(params, conv_layout="lane_packed")
+        seen = []
+
+        def spy(xin, quant=None, qcfg=cnn.LOGQ_DEFAULT):
+            seen.append(xin.clone())
+            return relu_q(xin, quant, qcfg)
+
+        before = moves()
+        cnn.relu_q = spy
+        try:
+            with torch.no_grad():
+                cnn.CNNS[name][1](packed, x, quant="logq6", conv_impl="auto")
+            torch.cuda.synchronize()
+        finally:
+            cnn.relu_q = relu_q
+        moved = [a - b for a, b in zip(moves(), before)]
+        if moved != [len(seen), 0, 2 * len(seen)]:
+            fail(f"{name}: {len(seen)} relu_q calls moved (cuda, plain, "
+                 f"launches) by {moved}, expected every call on the kernel")
+        for i, xin in enumerate(seen):
+            y, codes = lr.log_requant_cuda(xin, codes=True)
+            want, want_codes = lr.ref_log_requant(xin, codes=True)
+            off = int((y.view(torch.int32) != want.view(torch.int32)).sum())
+            off_codes = int((codes != want_codes).sum())
+            if off or off_codes:
+                fail(f"{name} relu_q call {i} {tuple(xin.shape)}: {off} "
+                     f"values and {off_codes} codes differ from the plain ops")
+        if int(lr._workspace(dev).abs().sum()):
+            fail("log_requant left its workspace non-zero")
+
+        def kernel():
+            for t in seen:
+                lr.log_requant_cuda(t)
+
+        def plain():
+            for t in seen:
+                lr.ref_log_requant(t)
+
+        elements = sum(t.numel() for t in seen)
+        ms, _ = _device_ms(kernel, f"log_requant {name}", match="requant_",
+                           expect=2 * len(seen))
+        rows[name] = row = {
+            "calls": len(seen), "elements": elements, "ms": ms,
+            "event_ms": time_ms(kernel, 5), "plain_ms": time_ms(plain, 3),
+            "bound_ms": REQUANT_BYTES * elements / PEAK_HBM_BYTES * 1e3}
+        print(f"log_requant {name:12s}: {len(seen)} relu_q calls, "
+              f"requant_calls cuda +{moved[0]} plain +{moved[1]}, launches "
+              f"+{moved[2]}, values and codes bit-equal to the plain ops; "
+              f"{elements} elements, device {ms:.4f} ms (events "
+              f"{row['event_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / ms:.1f} % of it)")
+        del seen, packed, params
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("calls", "elements", "ms", "event_ms", "plain_ms",
+                       "bound_ms")}
+    counters = {k: v for k, v in REGISTRY.snapshot()["counters"].items()
+                if k.startswith("requant_calls")}
+    print(f"log_requant over one forward of each net: {total}; counters "
+          f"{counters}")
+    return {"nets": rows, "total": total, "counters": counters}
 
 
 WINDOWS = 5   # profiler windows a measurement may take before the run fails
@@ -4166,10 +4265,14 @@ def main() -> int:
     # SM, which allows the cap of 255 registers a thread
     if "wkv6" in built:
         check_registers(built["wkv6"]["log"], 255)
+    # the requantization's kernels keep four blocks of 256 threads an SM
+    if "log_requant" in built:
+        check_registers(built["log_requant"]["log"], 64)
 
     phase_decode(dev)
     checks, max_err = phase_sweeps(dev)
     slice_rows, launches = phase_slice(dev)
+    requant = phase_requant(dev)
     times, nets = phase_conv_times(dev)
     im2col = phase_im2col(dev, times)
     mm_rows, mm_err = phase_log_matmul(dev)
@@ -4293,7 +4396,20 @@ def main() -> int:
             variant=wk_times["wkv6 decode step"]["variant"],
             long_shapes={k: {f: wk_times[k][f] for f in (
                 "variant", "blocks", "ms", "bound_ms", "bound_by")}
-                for k in wk_times if k != "wkv6 decode step"})]
+                for k in wk_times if k != "wkv6 decode step"}),
+        {"name": "log_requant_cuda", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/log_requant.cu",
+         "replaces": "no Pallas call: relu_q's plain jnp "
+         "(src/repro/models/cnn.py:86)",
+         "launches": 2 * requant["total"]["calls"], "max_abs_err": 0.0,
+         "ms": requant["total"]["ms"],
+         "plain_ms": requant["total"]["plain_ms"],
+         "bound_ms": requant["total"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "event_ms": requant["total"]["event_ms"],
+         "time": f"device time by torch.profiler over the "
+         f"{requant['total']['calls']} relu_q calls of one forward of each "
+         f"net; plain_ms and event_ms by CUDA events; bound 12 bytes an "
+         f"element at 3.35 TB/s", "by_net": requant["nets"]}]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -4308,7 +4424,7 @@ def main() -> int:
          "granite_moe_slice": moe, "lm_profiler": lm_prof,
          "profiler": prof, "benches": benches, "training": training,
          "example_twins": twins, "autotune": tuned, "mesh": meshed,
-         "dryrun": dry, "im2col": im2col,
+         "dryrun": dry, "im2col": im2col, "requant": requant,
          "profiler_windows_retaken": RETAKEN}, indent=1, default=str))
     print(f"conv times are sums over one batch-{BATCH} forward of each of "
           f"the four nets ({sum(CONVS_PER_NET.values())} convs; the kernel "

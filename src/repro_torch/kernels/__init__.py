@@ -9,6 +9,9 @@ flash_attention  GQA online-softmax attention: the CUDA kernel
                  (`csrc/flash_attention.cu`, wrapper `flash_attention_cuda`)
 wkv6             the RWKV6 recurrence: the CUDA kernel (`csrc/wkv6.cu`,
                  wrapper `wkv6_cuda`) and the chunked plain `wkv6_chunked`
+log_requant      post-ReLU log requantization of an activation map: the
+                 CUDA kernel (`csrc/log_requant.cu`, wrapper
+                 `log_requant_cuda`) and the plain `ref_log_requant`
 ref              the oracles `ref_log_matmul`, `ref_attention`, `ref_wkv6`
 ops              the dispatch layer: ``impl="cuda|blockwise|ref|auto"``
 """

@@ -7,7 +7,9 @@ HWIO conv kernels and parameter trees (plain dicts and lists of tensors;
 ResNet's blocks are ``(block, stride)`` tuples).  Two knobs:
 
   * ``quant="logq6"`` inserts `fake_log_quant` (straight-through) on conv
-    weights and post-ReLU activations, the QAT path;
+    weights and post-ReLU activations, the QAT path; where no gradient is
+    wanted, a float32 activation on the card is requantized by the CUDA
+    kernel `kernels/log_requant` instead, bit for bit the same values;
   * ``conv_impl="cuda"|"cuda_im2col"|"blockwise"|"ref"|"auto"`` routes
     every conv through `kernels/ops.conv2d` on packed int8 log codes
     (packed once at load by `serving.quantize.quantize_cnn_params`, or per
@@ -38,9 +40,11 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.logquant import DEFAULT as LOGQ_DEFAULT
 from repro_torch.core.logquant import (LogQuantConfig, QuantizedTensor,
                                        fake_log_quant, quantize_tensor)
+from repro_torch.kernels import log_requant
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.log_conv2d import conv_nhwc, normalize_padding
 from repro_torch.obs import trace
+from repro_torch.obs.metrics import REGISTRY
 
 # ---------------------------------------------------------------------------
 # quant-aware primitives
@@ -103,10 +107,21 @@ def _head_init(gen, c, n_classes, device):
 
 def relu_q(x, quant=None, qcfg=LOGQ_DEFAULT):
     """ReLU then (optionally) log-requantize: the paper's post-processing
-    block (ReLU + log-table requantization before writing back to DDR)."""
+    block (ReLU + log-table requantization before writing back to DDR).
+
+    A requantization runs the CUDA kernel where it takes the input
+    (`log_requant.kernel_takes`: a float32 map on the card, per-channel
+    scales, no gradient wanted), else the plain ops with their
+    straight-through backward; ``requant_calls{path=cuda|plain}`` in
+    `obs.metrics.REGISTRY` counts each."""
     with trace.span("cnn.requant"):
-        x = torch.relu(x)
-        return _maybe_fq(x, quant, qcfg) if quant == "logq6" else x
+        if quant != "logq6":
+            return torch.relu(x)
+        path = "cuda" if log_requant.kernel_takes(x, qcfg) else "plain"
+        REGISTRY.counter("requant_calls", path=path).inc()
+        if path == "cuda":
+            return log_requant.log_requant_cuda(x, qcfg)
+        return fake_log_quant(torch.relu(x), qcfg)
 
 
 def avgpool_global(x):
