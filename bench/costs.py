@@ -33,13 +33,15 @@ def conv_shapes(config: dict, batch: int) -> list[dict]:
         y = cnn.conv_nhwc(x, w, stride)
         B, H, W, C = x.shape
         shapes.append(dict(name=name, B=B, H=H, W=W, C=C, K=w.shape[0],
-                           Cout=w.shape[-1], stride=stride, groups=1,
+                           Cout=w.shape[-1], stride=stride,
+                           groups=cnn.conv_groups(x, w),
                            Ho=y.shape[1], Wo=y.shape[2]))
         return y
 
     s = config["image_size"]
     cnn.forward(config, meta, torch.empty(
-        (batch, s, s, config["in_channels"]), device="meta"), conv, torch.relu)
+        (batch, s, s, config["in_channels"]), device="meta"), conv,
+        lambda x, relu=True: x)
     return shapes
 
 

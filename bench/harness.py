@@ -94,8 +94,9 @@ class Run:
 
 
 def draw_weights(config: dict, gen: torch.Generator, device) -> dict:
-    """Every weight of the plan from one normal draw on ``device``: convs
-    He-normal, the head at std sqrt(1 / width), biases at ``BIAS_STD``."""
+    """Every weight of the plan from one normal draw on ``device``, in the
+    plan's order, each scaled and shifted to the (mean, std) that its
+    family gives it, or else to `default_init`'s."""
     shapes = ref_cnn.weight_shapes(config)
     sizes = [math.prod(s) for s in shapes.values()]
     flat = torch.randn(sum(sizes), generator=gen, device=device)
@@ -103,14 +104,23 @@ def draw_weights(config: dict, gen: torch.Generator, device) -> dict:
     for (name, shape), n in zip(shapes.items(), sizes):
         w = flat[off:off + n].view(shape)
         off += n
-        if name.endswith(".b"):
-            w.mul_(BIAS_STD)
-        elif name == "head.w":
-            w.mul_((1.0 / shape[0]) ** 0.5)
-        else:
-            w.mul_((2.0 / (shape[0] * shape[1] * shape[2])) ** 0.5)
+        mean, std = (ref_cnn.weight_init(config, name, shape)
+                     or default_init(name, shape))
+        w.mul_(std)
+        if mean:
+            w.add_(mean)
         out[name] = w
     return out
+
+
+def default_init(name: str, shape) -> tuple[float, float]:
+    """Biases at ``BIAS_STD``, the head at std sqrt(1 / width), a K x K x
+    I x O kernel He-normal (std sqrt(2 / (K K I))); mean 0."""
+    if name.endswith(".b"):
+        return 0.0, BIAS_STD
+    if name == "head.w":
+        return 0.0, (1.0 / shape[0]) ** 0.5
+    return 0.0, (2.0 / (shape[0] * shape[1] * shape[2])) ** 0.5
 
 
 def power_limit_w() -> float | None:

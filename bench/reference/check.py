@@ -14,10 +14,11 @@ own input to that conv and holds three numbers against their limits:
 ``act_mismatch``
     each conv's input against what the plan makes of the program's
     previous outputs (bias, ReLU, requantization, pools, the shortcut
-    add; the images for the first conv): the share of elements that differ
-    by more than ``ACT_RTOL`` of their value, worst conv.  A code taken one
-    step off moves a value by a factor of sqrt(2); a channel scale a few
-    ulps off (another float32 order of the same sums) moves it by 1e-7.
+    add, whatever else the family's plan does; the images for the first
+    conv): the share of elements that differ by more than ``ACT_RTOL`` of
+    their value, worst conv.  A code taken one step off moves a value by a
+    factor of sqrt(2); a channel scale a few ulps off (another float32
+    order of the same sums) moves it by 1e-7.
 ``logit_gap``
     the logits that the timed window delivered against the plan's head
     over the program's last outputs: the largest |difference| over the
@@ -96,9 +97,15 @@ def _conv(x, w, stride, prec):
 
 
 def _requant(config, prec):
+    """ReLU (unless ``relu`` is false) and the activations'
+    quantize-dequantize: signed values keep their sign under the same
+    per-channel scale rule."""
     lq = _lq(config)
-    return lambda x: logquant.fake_quant(torch.relu(x), **lq,
-                                         dtype=prec.quant_dtype)
+
+    def requant(x, relu=True):
+        return logquant.fake_quant(torch.relu(x) if relu else x, **lq,
+                                   dtype=prec.quant_dtype)
+    return requant
 
 
 def _head(prec, weights):

@@ -2,18 +2,34 @@
 weights, SAME padding on XLA's convention (the low side gets the smaller
 half), VALID max pools, a global average pool and a dense head.
 
-`forward` walks a configuration's layer plan and leaves each conv and each
-requantization to the caller, so that one walk serves the plain forward,
-the forward that follows the program stage by stage (`check`), and the
-shape walk of the cost model (`bench/costs.py`).  Layers are named by the
-path of their weights, ``convs.3`` or ``stages.1.0.0.c2``: the names under
-which the benchmark draws the weights that it hands to both sides.
+Each family's layer plan is a module of its own,
+``families/<config["family"]>.py``, found by its file name as the harness
+finds a metric, so that a later family is a new file.  It gives
+``conv_layers(config)`` (name, K, cin, cout, stride of every conv, in the
+plan's order), ``weight_shapes(config)`` (every weight the plan reads, by
+name, in the order the benchmark draws them), ``head_width(config)``, and
+``forward(config, weights, images, conv, requant)``; it may give
+``weight_init(name, shape)``, a weight's (mean, std) where the benchmark's
+default draw does not fit it.
+
+`forward` walks the plan and leaves each conv and each requantization to
+the caller, so that one walk serves the plain forward, the forward that
+follows the program stage by stage (`check`), and the shape walk of the
+cost model (`bench/costs.py`).  Layers are named by the path of their
+weights: the names under which the benchmark draws the weights that it
+hands to both sides.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import torch
 import torch.nn.functional as F
+
+FAMILIES = Path(__file__).resolve().parent / "families"
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -22,13 +38,21 @@ def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv_groups(x: torch.Tensor, w_hwio: torch.Tensor) -> int:
+    """The input's channels over the kernel's: 1 for a dense kernel, C for
+    a depthwise one (K x K x 1 x C)."""
+    return x.shape[-1] // w_hwio.shape[2]
+
+
 def conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, stride: int):
-    """SAME conv of NHWC ``x`` with an HWIO kernel, NHWC out."""
+    """SAME conv of NHWC ``x`` with an HWIO kernel, NHWC out, in
+    `conv_groups` groups."""
     K = w_hwio.shape[0]
     (h0, h1), (w0, w1) = (same_pads(x.shape[1], K, stride),
                           same_pads(x.shape[2], K, stride))
     xn = F.pad(x.permute(0, 3, 1, 2), (w0, w1, h0, h1))
-    y = F.conv2d(xn, w_hwio.permute(3, 2, 0, 1), stride=stride)
+    y = F.conv2d(xn, w_hwio.permute(3, 2, 0, 1), stride=stride,
+                 groups=conv_groups(x, w_hwio))
     return y.permute(0, 2, 3, 1)
 
 
@@ -38,74 +62,68 @@ def maxpool(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), k, s).permute(0, 2, 3, 1)
 
 
+def dense_head(x: torch.Tensor, weights: dict) -> torch.Tensor:
+    """Global average pool and the dense ``head``."""
+    return x.mean(dim=(1, 2)) @ weights["head.w"] + weights["head.b"]
+
+
+def biased_conv_shapes(config: dict, layers, width: int) -> dict:
+    """Each conv's HWIO kernel and bias, then the dense head: the weights
+    of a plan whose every conv is dense and carries a bias."""
+    shapes = {}
+    for name, K, cin, cout, _ in layers:
+        shapes[name + ".w"] = (K, K, cin, cout)
+        shapes[name + ".b"] = (cout,)
+    shapes["head.w"] = (width, config["n_classes"])
+    shapes["head.b"] = (config["n_classes"],)
+    return shapes
+
+
+def family(config: dict):
+    """The plan module of ``config["family"]``."""
+    path = FAMILIES / f"{config['family']}.py"
+    if not path.is_file():
+        raise ValueError(f"unknown family {config['family']!r}: no {path}")
+    return _load(path)
+
+
+@functools.cache
+def _load(path: Path):
+    # named inside this package, so that the plan imports its primitives
+    # from here (``from .. import cnn``)
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}.families.{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def conv_layers(config: dict) -> list[tuple[str, int, int, int, int]]:
     """(name, K, cin, cout, stride) of every conv, in the plan's order."""
-    c = config["in_channels"]
-    out = []
-    if config["family"] == "vgg":
-        for i, (cout, _) in enumerate(config["convs"]):
-            out.append((f"convs.{i}", config["conv_kernel"], c, cout,
-                        config["conv_stride"]))
-            c = cout
-        return out
-    if config["family"] != "resnet":
-        raise ValueError(f"unknown family {config['family']!r}")
-    out.append(("stem", config["stem_kernel"], c, config["stem_channels"],
-                config["stem_stride"]))
-    c, K = config["stem_channels"], config["conv_kernel"]
-    for s, (cout, blocks, first) in enumerate(config["stages"]):
-        for b in range(blocks):
-            st, pre = (first if b == 0 else 1), f"stages.{s}.{b}.0"
-            out += [(f"{pre}.c1", K, c, cout, st), (f"{pre}.c2", K, cout, cout, 1)]
-            if st != 1 or c != cout:
-                out.append((f"{pre}.proj", 1, c, cout, st))
-            c = cout
-    return out
+    return family(config).conv_layers(config)
 
 
 def head_width(config: dict) -> int:
-    return conv_layers(config)[-1][3]
+    return family(config).head_width(config)
+
+
+def weight_shapes(config: dict) -> dict[str, tuple[int, ...]]:
+    """Every weight the plan reads, by name, in the order the benchmark
+    draws them."""
+    return family(config).weight_shapes(config)
+
+
+def weight_init(config: dict, name: str, shape) -> tuple[float, float] | None:
+    """The family's (mean, std) for one weight, or None where it keeps the
+    benchmark's default draw."""
+    own = getattr(family(config), "weight_init", None)
+    return None if own is None else own(name, tuple(shape))
 
 
 def forward(config: dict, weights: dict, images: torch.Tensor, conv,
             requant) -> torch.Tensor:
     """Logits of ``images`` [B, H, W, C].  ``conv(name, x, stride)`` gives
-    the conv's output before its bias; ``requant(x)`` is ReLU and the
-    activations' quantize-dequantize."""
-    b = weights
-    if config["family"] == "vgg":
-        x = images
-        for i, (_, pool) in enumerate(config["convs"]):
-            name = f"convs.{i}"
-            x = requant(conv(name, x, config["conv_stride"]) + b[name + ".b"])
-            if pool:
-                x = maxpool(x, config["pool_kernel"], config["pool_stride"])
-    else:
-        x = requant(conv("stem", images, config["stem_stride"]) + b["stem.b"])
-        x = maxpool(x, config["stem_pool_kernel"], config["stem_pool_stride"])
-        c = config["stem_channels"]
-        for s, (cout, blocks, first) in enumerate(config["stages"]):
-            for i in range(blocks):
-                st, pre = (first if i == 0 else 1), f"stages.{s}.{i}.0"
-                y = requant(conv(pre + ".c1", x, st) + b[pre + ".c1.b"])
-                y = conv(pre + ".c2", y, 1) + b[pre + ".c2.b"]
-                if st != 1 or c != cout:
-                    x = y + (conv(pre + ".proj", x, st) + b[pre + ".proj.b"])
-                else:
-                    x = y + x
-                x = requant(x)
-                c = cout
-    x = x.mean(dim=(1, 2))
-    return x @ b["head.w"] + b["head.b"]
-
-
-def weight_shapes(config: dict) -> dict[str, tuple[int, ...]]:
-    """Every weight the plan reads, by name, in the order the benchmark
-    draws them: each conv's HWIO kernel and bias, then the dense head."""
-    shapes = {}
-    for name, K, cin, cout, _ in conv_layers(config):
-        shapes[name + ".w"] = (K, K, cin, cout)
-        shapes[name + ".b"] = (cout,)
-    shapes["head.w"] = (head_width(config), config["n_classes"])
-    shapes["head.b"] = (config["n_classes"],)
-    return shapes
+    the conv's output before its bias; ``requant(x, relu=True)`` is the
+    activations' quantize-dequantize, after a ReLU unless ``relu`` is
+    false."""
+    return family(config).forward(config, weights, images, conv, requant)
