@@ -32,13 +32,19 @@ goes wrong:
      match ``"blockwise"`` on the same input, and the logits must match the
      ``"blockwise"`` forward's.  Each net's forward is timed and profiled
      (device busy time, idle share, top kernels, the log requantization
-     kernel's busy ms).  Then the log requantization kernel
-     (`kernels/log_requant`, `phase_requant`) on every `relu_q` input of
-     one forward of each net: every call counted as
-     ``requant_calls{path="cuda"}`` and launching two kernels, values and
-     int8 codes equal to the plain ops bit for bit, and its device ms
-     over the net's calls beside the plain ops' ms and the byte bound (12
-     bytes an element at 3.35 TB/s);
+     kernel's busy ms).  Then ConvNeXt-T (`slice_convnext`), the
+     benchmark's signed-code net, on the same images: 58 launches of the
+     conv kernel (7x7 depthwise, the 4x4/4 stem on three channels, 2x2/2
+     convs down, 1x1 convs up to 3,072 input channels), each conv within
+     1e-4 of the largest of ``"ref"``'s on the same input, timed and
+     profiled.  Then the log requantization kernel (`kernels/log_requant`,
+     `phase_requant`) on every `relu_q` input of one forward of each paper
+     net and every `log_q` input of one ConvNeXt-T forward (the signed
+     instances): every call counted as ``requant_calls{path="cuda"}``
+     (``requant_signed_calls{path="cuda"}`` for `log_q`) and launching two
+     kernels, values and int8 codes equal to the plain ops bit for bit,
+     and its device ms over the net's calls beside the plain ops' ms and
+     the byte bound (12 bytes an element at 3.35 TB/s);
   6. per-conv times at batch 8 over the 61 distinct shapes: the kernel (at
      the packaged autotune tier's knobs, which the main path launches;
      where they differ, also at the heuristic's) and the library call (`F.conv2d` on weights decoded in advance, the same
@@ -705,18 +711,18 @@ def phase_sweeps(dev) -> tuple[list, float]:
 def phase_slice(dev) -> tuple[list, int]:
     from repro_torch.kernels import ops
     from repro_torch.kernels.log_conv2d import log_conv2d_fused
-    from repro_torch.models.cnn import CNNS, make_cnn
+    from repro_torch.models.cnn import CNN_ZOO, make_cnn
     from repro_torch.serving.quantize import quantize_cnn_params
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
     nets = {}
-    for name in CNNS:
+    for name in CNN_ZOO:
         params, _ = make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)
         nets[name] = quantize_cnn_params(params, conv_layout="lane_packed")
 
     def forward(name, quant, impl):
         with torch.no_grad():
-            return CNNS[name][1](nets[name], x, quant=quant, conv_impl=impl)
+            return CNN_ZOO[name][1](nets[name], x, quant=quant, conv_impl=impl)
 
     def checked_forward(name, quant):
         """A forward on the kernel in which every conv's output is also held
@@ -743,7 +749,7 @@ def phase_slice(dev) -> tuple[list, int]:
     # the main path: the repo's default model configuration, quant="logq6";
     # the launch count is zeroed just before it and read just after it
     log_conv2d_fused.launches = 0
-    for name in CNNS:
+    for name in CNN_ZOO:
         before = log_conv2d_fused.launches
         forward(name, "logq6", "auto")
         torch.cuda.synchronize()
@@ -757,7 +763,7 @@ def phase_slice(dev) -> tuple[list, int]:
 
     rows = []
     for quant in ("logq6", None):
-        for name in CNNS:
+        for name in CNN_ZOO:
             out, launched, worst = checked_forward(name, quant)
             if launched != CONVS_PER_NET[name]:
                 fail(f"{name}: kernel launched {launched} times, expected "
@@ -822,7 +828,95 @@ def phase_slice(dev) -> tuple[list, int]:
                   f"{drift:.3e} (tol {tol:.3e}, max|l| "
                   f"{row['max_abs_logit']:.3e}, top-1 agree "
                   f"{row['top1_agree']:.3f}){msg}")
+    rows.append(slice_convnext(dev, x))
     return rows, main_launches
+
+
+CONVNEXT_CONVS = 58   # the stem, three convs down, three in each of 18 blocks
+CONV_GAP = 1e-4       # the benchmark's conv_gap limit (bench/configs)
+
+
+def slice_convnext(dev, x) -> dict:
+    """ConvNeXt-T, the benchmark's signed-code net, at full width on the
+    slice's images (packed lane_packed weights, ``conv_impl="auto"``): the
+    conv kernel's launch count, zeroed just before the forward, must rise by
+    its 58 convs (18 7x7 depthwise on the generic instance, the 4x4/4 stem on
+    three channels, three 2x2/2 convs down, 36 1x1 convs with 96 to 3,072
+    input channels); in a second forward each conv's output must lie within
+    1e-4 of the largest of ``"ref"``'s on the very same input.  The logits'
+    distance from a ``"ref"`` forward is printed, not held: a requantization
+    code flipped at a half-step boundary cascades."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.log_conv2d import log_conv2d_fused
+    from repro_torch.models.cnn import CNNS, make_cnn
+    from repro_torch.serving.quantize import quantize_cnn_params
+    params, _ = make_cnn("convnext_t", SEED, n_classes=N_CLASSES, device=dev)
+    net = quantize_cnn_params(params, conv_layout="lane_packed")
+    apply = CNNS["convnext_t"][1]
+
+    def forward(impl):
+        with torch.no_grad():
+            return apply(net, x, quant="logq6", conv_impl=impl)
+
+    # the main path: the launch count is zeroed just before it
+    log_conv2d_fused.launches = 0
+    forward("auto")
+    torch.cuda.synchronize()
+    if log_conv2d_fused.launches != CONVNEXT_CONVS:
+        fail(f"convnext_t: kernel launched {log_conv2d_fused.launches} times "
+             f"on the main path, expected {CONVNEXT_CONVS}")
+    conv, gaps = ops.conv2d, {}
+
+    def checked(xin, qt, **kw):
+        y = conv(xin, qt, **kw)
+        y_ref = conv(xin, qt, **dict(kw, impl="ref"))
+        key = (tuple(xin.shape), tuple(qt.shape), kw.get("stride", 1),
+               kw.get("groups", 1))
+        gap = float((y - y_ref).abs().max() / y_ref.abs().max())
+        gaps[key] = max(gaps.get(key, 0.0), gap)
+        return y
+
+    ops.conv2d = checked
+    try:
+        before = log_conv2d_fused.launches
+        out = forward("auto")
+        torch.cuda.synchronize()
+    finally:
+        ops.conv2d = conv
+    launched = log_conv2d_fused.launches - before
+    worst = max(gaps.values())
+    if launched != CONVNEXT_CONVS or worst > CONV_GAP:
+        fail(f"convnext_t: {launched} launches (expected {CONVNEXT_CONVS}), "
+             f"worst conv gap against ref {worst:.3e} (limit {CONV_GAP}): "
+             f"{gaps}")
+    if tuple(out.shape) != (BATCH, N_CLASSES) or \
+            not bool(torch.isfinite(out).all()):
+        fail(f"convnext_t: logits {tuple(out.shape)} or non-finite")
+    ref = forward("ref")
+    row = {"net": "convnext_t", "quant": "logq6", "launches": launched,
+           "conv_shapes": len(gaps), "worst_conv_gap": worst,
+           "drift": float((out - ref).abs().max()),
+           "max_abs_logit": float(ref.abs().max()),
+           "top1_agree": float((out.argmax(-1) == ref.argmax(-1))
+                               .float().mean()),
+           "forward_ms": time_ms(lambda: forward("auto"), 3)}
+    row["images_per_s"] = BATCH / row["forward_ms"] * 1e3
+    row.update(profile_forward(lambda: forward("auto")))
+    row["idle_share"] = (1 - row["device_busy_ms"] / row["forward_ms"]
+                         if row["device_kernels"] else None)
+    print(f"slice convnext_t   quant=logq6: launches {launched} over "
+          f"{len(gaps)} distinct conv shapes, worst conv gap against ref "
+          f"{worst:.3e} (limit {CONV_GAP}); |logits - ref| {row['drift']:.3e} "
+          f"(max|l| {row['max_abs_logit']:.3e}, top-1 agree "
+          f"{row['top1_agree']:.3f}); forward {row['forward_ms']:.3f} ms "
+          f"({row['images_per_s']:.1f} images/s); profiled: "
+          f"{row['device_kernels']} device kernels, busy "
+          f"{row['device_busy_ms']:.3f} ms (log requantization "
+          f"{row['requant_ms']:.3f}), idle share {row['idle_share']}, top "
+          f"{row['top_kernels_ms'][:3]}")
+    del net, params
+    torch.cuda.empty_cache()
+    return row
 
 
 REQUANT_BYTES = 12   # an element read by both passes and written once
@@ -830,11 +924,17 @@ REQUANT_BYTES = 12   # an element read by both passes and written once
 
 def phase_requant(dev) -> dict:
     """The log requantization kernel on every `relu_q` input of one
-    forward of each net (batch 8, 224 px, the main path's packed weights):
-    the counter and the launches over the forward, each input through the
-    kernel and the plain ops (values and codes bit for bit), the kernel's
-    device ms over the net's calls (torch.profiler) with CUDA events
-    beside it, the plain ops' ms (CUDA events) and the byte bound."""
+    forward of each of the paper's nets, and on every `log_q` input (the
+    signed instances, ``relu=False``) of one ConvNeXt-T forward (batch 8,
+    224 px, the main path's packed weights): the counters and the launches
+    over the forward, zeroed just before it (every call on the kernel, two
+    launches each, no plain call, and ConvNeXt-T's none under
+    ``requant_calls``), each input through the kernel and the plain ops
+    (values and codes bit for bit; for the signed maps `fake_log_quant` and
+    `log_quantize`), the kernel's device ms over the net's calls
+    (torch.profiler) with CUDA events beside it, the plain ops' ms (CUDA
+    events) and the byte bound."""
+    from repro_torch.core.logquant import fake_log_quant, log_quantize
     from repro_torch.kernels import log_requant as lr
     from repro_torch.models import cnn
     from repro_torch.obs.metrics import REGISTRY
@@ -842,76 +942,92 @@ def phase_requant(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
 
-    def moves():
-        return (REGISTRY.counter("requant_calls", path="cuda").value,
-                REGISTRY.counter("requant_calls", path="plain").value,
-                lr.log_requant_cuda.launches)
+    def calls(name):
+        return (REGISTRY.counter(name, path="cuda").value,
+                REGISTRY.counter(name, path="plain").value)
 
-    rows, relu_q = {}, cnn.relu_q
-    for name in cnn.CNNS:
+    def one_net(name, relu):
+        """(row, counters moved) of one forward of ``name``, each input of
+        its `relu_q` (``relu``) or `log_q` calls checked and timed."""
         params, _ = cnn.make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)
         packed = quantize_cnn_params(params, conv_layout="lane_packed")
-        seen = []
+        attr = "relu_q" if relu else "log_q"
+        step, seen = getattr(cnn, attr), []
 
         def spy(xin, quant=None, qcfg=cnn.LOGQ_DEFAULT):
             seen.append(xin.clone())
-            return relu_q(xin, quant, qcfg)
+            return step(xin, quant, qcfg)
 
-        before = moves()
-        cnn.relu_q = spy
+        before = calls("requant_calls") + calls("requant_signed_calls")
+        lr.log_requant_cuda.launches = 0
+        setattr(cnn, attr, spy)
         try:
             with torch.no_grad():
                 cnn.CNNS[name][1](packed, x, quant="logq6", conv_impl="auto")
             torch.cuda.synchronize()
         finally:
-            cnn.relu_q = relu_q
-        moved = [a - b for a, b in zip(moves(), before)]
-        if moved != [len(seen), 0, 2 * len(seen)]:
-            fail(f"{name}: {len(seen)} relu_q calls moved (cuda, plain, "
-                 f"launches) by {moved}, expected every call on the kernel")
+            setattr(cnn, attr, step)
+        after = calls("requant_calls") + calls("requant_signed_calls")
+        moved = [a - b for a, b in zip(after, before)] + [
+            lr.log_requant_cuda.launches]
+        want = ([len(seen), 0, 0, 0] if relu else [0, 0, len(seen), 0]) + [
+            2 * len(seen)]
+        if moved != want or not seen:
+            fail(f"{name}: {len(seen)} {attr} calls moved (requant_calls "
+                 f"cuda, plain, requant_signed_calls cuda, plain, launches) "
+                 f"by {moved}, expected {want}")
         for i, xin in enumerate(seen):
-            y, codes = lr.log_requant_cuda(xin, codes=True)
-            want, want_codes = lr.ref_log_requant(xin, codes=True)
-            off = int((y.view(torch.int32) != want.view(torch.int32)).sum())
-            off_codes = int((codes != want_codes).sum())
+            y, codes = lr.log_requant_cuda(xin, codes=True, relu=relu)
+            if relu:
+                ref, ref_codes = lr.ref_log_requant(xin, codes=True)
+            else:
+                ref, ref_codes = fake_log_quant(xin), log_quantize(xin)[0]
+            off = int((y.view(torch.int32) != ref.view(torch.int32)).sum())
+            off_codes = int((codes != ref_codes).sum())
             if off or off_codes:
-                fail(f"{name} relu_q call {i} {tuple(xin.shape)}: {off} "
+                fail(f"{name} {attr} call {i} {tuple(xin.shape)}: {off} "
                      f"values and {off_codes} codes differ from the plain ops")
         if int(lr._workspace(dev).abs().sum()):
             fail("log_requant left its workspace non-zero")
 
         def kernel():
             for t in seen:
-                lr.log_requant_cuda(t)
+                lr.log_requant_cuda(t, relu=relu)
 
         def plain():
             for t in seen:
-                lr.ref_log_requant(t)
+                lr.ref_log_requant(t, relu=relu)
 
         elements = sum(t.numel() for t in seen)
         ms, _ = _device_ms(kernel, f"log_requant {name}", match="requant_",
                            expect=2 * len(seen))
-        rows[name] = row = {
-            "calls": len(seen), "elements": elements, "ms": ms,
-            "event_ms": time_ms(kernel, 5), "plain_ms": time_ms(plain, 3),
-            "bound_ms": REQUANT_BYTES * elements / PEAK_HBM_BYTES * 1e3}
-        print(f"log_requant {name:12s}: {len(seen)} relu_q calls, "
-              f"requant_calls cuda +{moved[0]} plain +{moved[1]}, launches "
-              f"+{moved[2]}, values and codes bit-equal to the plain ops; "
-              f"{elements} elements, device {ms:.4f} ms (events "
+        row = {"calls": len(seen), "elements": elements, "ms": ms,
+               "event_ms": time_ms(kernel, 5), "plain_ms": time_ms(plain, 3),
+               "bound_ms": REQUANT_BYTES * elements / PEAK_HBM_BYTES * 1e3,
+               "channels": sorted({t.shape[-1] for t in seen})}
+        print(f"log_requant {name:12s}: {len(seen)} {attr} calls, counters "
+              f"and launches moved {moved} (requant_calls cuda, plain, "
+              f"requant_signed_calls cuda, plain, launches), values and "
+              f"codes bit-equal to the plain ops; {elements} elements, C in "
+              f"{row['channels']}, device {ms:.4f} ms (events "
               f"{row['event_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.4f} ms "
               f"({100 * row['bound_ms'] / ms:.1f} % of it)")
         del seen, packed, params
         torch.cuda.empty_cache()
+        return row
+
+    rows = {name: one_net(name, True) for name in cnn.CNN_ZOO}
     total = {k: sum(r[k] for r in rows.values())
              for k in ("calls", "elements", "ms", "event_ms", "plain_ms",
                        "bound_ms")}
+    signed = one_net("convnext_t", False)
     counters = {k: v for k, v in REGISTRY.snapshot()["counters"].items()
-                if k.startswith("requant_calls")}
-    print(f"log_requant over one forward of each net: {total}; counters "
-          f"{counters}")
-    return {"nets": rows, "total": total, "counters": counters}
+                if k.startswith("requant_")}
+    print(f"log_requant over one forward of each paper net: {total}; "
+          f"signed, one ConvNeXt-T forward: {signed}; counters {counters}")
+    return {"nets": rows, "total": total, "signed": signed,
+            "counters": counters}
 
 
 WINDOWS = 5   # profiler windows a measurement may take before the run fails
@@ -1017,7 +1133,7 @@ def phase_conv_times(dev) -> tuple[dict, list]:
                                                 log_conv2d_geometry,
                                                 log_conv2d_ref,
                                                 normalize_padding)
-    from repro_torch.models.cnn import CNNS, trace_conv_shapes, \
+    from repro_torch.models.cnn import CNN_ZOO, trace_conv_shapes, \
         zoo_conv_shapes
     rng = np.random.default_rng(SEED + 2)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1101,7 +1217,7 @@ def phase_conv_times(dev) -> tuple[dict, list]:
             del x, qt, hwio, codes, w
             torch.cuda.empty_cache()
     nets = []
-    for name in CNNS:
+    for name in CNN_ZOO:
         recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
                                  n_classes=N_CLASSES)
         tot = {k: sum(times[sig(r)][k] for r in recs)
@@ -1173,7 +1289,7 @@ def phase_im2col(dev, conv_times: dict) -> dict:
     from repro_torch.kernels.log_conv2d import log_conv2d_fused
     from repro_torch.kernels.log_matmul import (log_matmul_cuda,
                                                 log_matmul_row_chunks)
-    from repro_torch.models.cnn import (CNNS, make_cnn, trace_conv_shapes,
+    from repro_torch.models.cnn import (CNN_ZOO, make_cnn, trace_conv_shapes,
                                         zoo_conv_shapes)
     from repro_torch.serving.quantize import quantize_cnn_params
     card = card_line()
@@ -1181,17 +1297,17 @@ def phase_im2col(dev, conv_times: dict) -> dict:
     x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
     nets = {name: quantize_cnn_params(
         make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)[0],
-        conv_layout="lane_packed") for name in CNNS}
+        conv_layout="lane_packed") for name in CNN_ZOO}
 
     def forward(name):
         with torch.no_grad():
-            return CNNS[name][1](nets[name], x, quant="logq6",
+            return CNN_ZOO[name][1](nets[name], x, quant="logq6",
                                  conv_impl="cuda_im2col")
 
     # the main path: the counts are zeroed just before it, read just after
     log_matmul_cuda.launches = 0
     log_conv2d_fused.launches = 0
-    for name in CNNS:
+    for name in CNN_ZOO:
         before = log_matmul_cuda.launches
         out = forward(name)
         torch.cuda.synchronize()
@@ -1211,7 +1327,7 @@ def phase_im2col(dev, conv_times: dict) -> dict:
           f"for one forward of each net ({CONVS_PER_NET}), conv kernel 0")
 
     rows = []
-    for name in CNNS:
+    for name in CNN_ZOO:
         conv, ratios = ops.conv2d, []
 
         def checked(xin, qt, **kw):
@@ -1268,7 +1384,7 @@ def phase_im2col(dev, conv_times: dict) -> dict:
             del xr, qt
             torch.cuda.empty_cache()
     nets_t = []
-    for name in CNNS:
+    for name in CNN_ZOO:
         recs = trace_conv_shapes(name, batch=BATCH, img=IMG,
                                  n_classes=N_CLASSES)
         t = {k: sum(per[sig(r)][k] for r in recs)
@@ -2870,7 +2986,7 @@ def phase_profiler(dev, lm_prof: dict) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.log_conv2d import log_conv2d_fused
     from repro_torch.kernels.wkv6 import wkv6_cuda
-    from repro_torch.models.cnn import CNNS, make_cnn
+    from repro_torch.models.cnn import CNN_ZOO, make_cnn
     from repro_torch.obs import kernel_profile as kprof
     from repro_torch.serving.quantize import quantize_cnn_params
 
@@ -2890,13 +3006,13 @@ def phase_profiler(dev, lm_prof: dict) -> dict:
     res, rows = {"nets": {}}, list(lm_prof["rows"])
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
-    for name in CNNS:                                     # (a)
+    for name in CNN_ZOO:                                     # (a)
         params, _ = make_cnn(name, SEED, n_classes=N_CLASSES, device=dev)
         net = quantize_cnn_params(params, conv_layout="lane_packed")
         expected = {}
         before = log_conv2d_fused.launches
         with torch.no_grad():
-            recs = profiled(lambda: CNNS[name][1](
+            recs = profiled(lambda: CNN_ZOO[name][1](
                 net, x, quant="logq6", conv_impl="auto"),
                 _spy_ops(expected, ("conv2d",)))
         launched = log_conv2d_fused.launches - before
@@ -3548,7 +3664,7 @@ def _cold_start_on_card(dev, nets: dict, x) -> dict:
         for name, net in nets.items():
             n0, b0 = len(calls), log_conv2d_fused.launches
             with cnn._capture_conv_shapes(calls):
-                cnn.CNNS[name][1](net, x, quant="logq6", conv_impl="auto")
+                cnn.CNN_ZOO[name][1](net, x, quant="logq6", conv_impl="auto")
             torch.cuda.synchronize()
             by_net[name] = {"dispatches": len(calls) - n0,
                             "launches": log_conv2d_fused.launches - b0}
@@ -3778,7 +3894,7 @@ def _forwards_with_without(dev, nets: dict, x) -> dict:
                     autotune.reset_cache()
                     for name, net in nets.items():
                         def fwd(name=name, net=net):
-                            return cnn.CNNS[name][1](net, x, quant="logq6",
+                            return cnn.CNN_ZOO[name][1](net, x, quant="logq6",
                                                      conv_impl="auto")
                         res[name][mode].append(time_ms(fwd, 3))
                         if mode not in busy[name]:
@@ -4197,7 +4313,7 @@ def phase_autotune(dev) -> dict:
     import os
     import tempfile
     from repro_torch.kernels import autotune
-    from repro_torch.models.cnn import CNNS, make_cnn
+    from repro_torch.models.cnn import CNN_ZOO, make_cnn
     from repro_torch.serving.quantize import quantize_cnn_params
     prev = os.environ.get(autotune.ENV_PATH)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-tier-") as tmp:
@@ -4208,7 +4324,7 @@ def phase_autotune(dev) -> dict:
             x = torch.randn((BATCH, IMG, IMG, 3), generator=gen, device=dev)
             nets = {name: quantize_cnn_params(make_cnn(
                 name, SEED, n_classes=N_CLASSES, device=dev)[0],
-                conv_layout="lane_packed") for name in CNNS}
+                conv_layout="lane_packed") for name in CNN_ZOO}
             res = {"cold_start": _cold_start_on_card(dev, nets, x),
                    "packaged": _packaged_checks(dev),
                    "sweep": _measured_sweep(dev),
@@ -4409,7 +4525,20 @@ def main() -> int:
          "time": f"device time by torch.profiler over the "
          f"{requant['total']['calls']} relu_q calls of one forward of each "
          f"net; plain_ms and event_ms by CUDA events; bound 12 bytes an "
-         f"element at 3.35 TB/s", "by_net": requant["nets"]}]
+         f"element at 3.35 TB/s", "by_net": requant["nets"]},
+        {"name": "log_requant_cuda(relu=False)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/log_requant.cu",
+         "replaces": "no Pallas call: fake_log_quant of a signed map, "
+         "which the JAX package has no net for",
+         "launches": 2 * requant["signed"]["calls"], "max_abs_err": 0.0,
+         "ms": requant["signed"]["ms"],
+         "plain_ms": requant["signed"]["plain_ms"],
+         "bound_ms": requant["signed"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "event_ms": requant["signed"]["event_ms"],
+         "time": f"device time by torch.profiler over the "
+         f"{requant['signed']['calls']} log_q calls of one ConvNeXt-T "
+         f"forward; plain_ms and event_ms by CUDA events; bound 12 bytes "
+         f"an element at 3.35 TB/s"}]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -137,7 +137,7 @@ def cold_start_section(img: int = IMG, batch: int = 1) -> dict:
     autotune.reset_cache()
     per_net, before, calls = {}, autotune_counts(), []
     try:
-        for name, (_, apply) in cnn_models.CNNS.items():
+        for name, (_, apply) in cnn_models.CNN_ZOO.items():
             params, _ = cnn_models.make_cnn(name, device="meta")
             qp = quantize_cnn_params(params, conv_layout="lane_packed")
             n0, n_calls = autotune_counts(), len(calls)

@@ -1,6 +1,7 @@
-// Post-ReLU log requantization of an activation map, for Hopper (built for
-// sm_90a): the paper's post-processing block (ReLU, then the base-sqrt(2)
-// log requantization before the map is written back).
+// Log requantization of an activation map, for Hopper (built for sm_90a):
+// the paper's post-processing block (ReLU, then the base-sqrt(2) log
+// requantization before the map is written back), and the same
+// requantization of a signed map without the ReLU (RELU = false).
 //
 // Replaces no TPU kernel: the JAX package's `relu_q`
 // (src/repro/models/cnn.py:86) is plain jnp, which XLA fuses.  In plain
@@ -20,6 +21,14 @@
 // bit for bit.  code / steps is an exact product by 1 / steps (a power of
 // two), as torch computes a division by a Python number.
 //
+// Signed (RELU = false), for maps that carry negative values (after a
+// LayerNorm, a GELU, a residual add): v = |x| in place of max(x, 0), and y
+// takes x's sign, -(exp2(code / steps) * scale) for x < 0.  That is
+// `log_quantize` then `log_dequantize` of x itself: torch forms
+// (sign * mag) * scale, and a negation is exact, so the two agree bit for
+// bit as well; a -0.0 input gives +0.0 and the zero code in both.  Each
+// pass is a template on RELU, so the ReLU instances compile as before.
+//
 // What bounds it on this card: bytes.  A map is read twice (the max, then
 // the quantize pass) and written once, 12 bytes an element; a few tens of
 // floating-point operations an element stay below the H100's ridge.  The
@@ -30,8 +39,9 @@
 //     every block has read its scales), so the next call finds it ready;
 //   * an exact max in any order: every value is >= +0, so a signed atomicMax
 //     on the float bits orders them as floats; -0.0 (0x80000000) sorts below
-//     +0.  A block folds its threads' maxima in shared memory first, then
-//     writes C atomics to the workspace;
+//     +0.  The signed max takes |x|, whose bits are >= +0 too.  A block
+//     folds its threads' maxima in shared memory first, then writes C
+//     atomics to the workspace;
 //   * 16-byte loads: where C % 4 == 0 and x is 16-byte aligned a thread
 //     reads 4 channels at once (VEC = 4), else one;
 //   * fixed channels a thread: the grid-stride step is a whole number of
@@ -49,10 +59,9 @@
 // before the current one's arithmetic, and a walk by adjacent whole rows
 // all read the same or slower.
 // The optional codes output writes the packed int8 codes ((sign << bits) |
-// biased code; the sign is never set after the ReLU) beside y.
+// biased code; the sign is set only on a signed map's x < 0) beside y.
 //
-// NaN inputs are not matched: max(x, 0) drops a NaN where torch.relu keeps
-// it.  A workspace shared by two streams at once would race: the port's
+// NaN inputs are not matched: fmaxf drops a NaN where torch keeps it.  A workspace shared by two streams at once would race: the port's
 // callers run on one stream.
 
 #include <cuda_runtime.h>
@@ -109,8 +118,9 @@ __device__ __forceinline__ float requant(float v, float scale, const Quant& q,
   return v == 0.0f ? 0.0f : exp2f(code * q.inv_steps) * scale;
 }
 
-// one vector of x -> y (and its packed codes, biased, 0 for an exact zero)
-template <int V>
+// one vector of x -> y (and its packed codes, biased, 0 for an exact zero;
+// signed, with the sign bit above them for x < 0)
+template <int V, bool RELU>
 __device__ __forceinline__ void requant_vector(const float (&a)[V],
                                                const float (&sc)[V],
                                                const Quant& q, float* y,
@@ -118,15 +128,18 @@ __device__ __forceinline__ void requant_vector(const float (&a)[V],
   float v[V], o[V], code[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    v[j] = fmaxf(a[j], 0.0f);
+    v[j] = RELU ? fmaxf(a[j], 0.0f) : fabsf(a[j]);
     o[j] = requant(v[j], sc[j], q, code[j]);
+    if (!RELU && a[j] < 0.0f) o[j] = -o[j];
   }
   store<V>(y, o);
   if (codes != nullptr) {
     int b[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j)
+    for (int j = 0; j < V; ++j) {
       b[j] = v[j] == 0.0f ? 0 : static_cast<int>(code[j]) + q.bias;
+      if (!RELU && a[j] < 0.0f) b[j] |= q.bias + 1;  // the sign, 1 << bits
+    }
     store_codes<V>(codes, b);
   }
 }
@@ -146,7 +159,7 @@ struct Walk {
   __device__ bool active() const { return i < step; }
 };
 
-template <int V>
+template <int V, bool RELU>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     requant_max(const float* __restrict__ x, int* __restrict__ smax,
                 long long rows, int C) {
@@ -166,13 +179,15 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
-        for (int j = 0; j < V; ++j) m[j] = fmaxf(m[j], a[u][j]);
+        for (int j = 0; j < V; ++j)
+          m[j] = fmaxf(m[j], RELU ? a[u][j] : fabsf(a[u][j]));
     }
     for (; i < w.total; i += w.step) {
       float a[V];
       load<V>(x + i * V, a);
 #pragma unroll
-      for (int j = 0; j < V; ++j) m[j] = fmaxf(m[j], a[j]);
+      for (int j = 0; j < V; ++j)
+        m[j] = fmaxf(m[j], RELU ? a[j] : fabsf(a[j]));
     }
 #pragma unroll
     for (int j = 0; j < V; ++j)
@@ -185,7 +200,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 }
 
-template <int V>
+template <int V, bool RELU>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     requant_quantize(const float* __restrict__ x, int* __restrict__ smax,
                      unsigned int* __restrict__ ticket, float* __restrict__ y,
@@ -224,27 +239,27 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const long long e = (i + u * w.step) * V;
-      requant_vector<V>(a[u], sc, q, y + e,
+      requant_vector<V, RELU>(a[u], sc, q, y + e,
                         codes != nullptr ? codes + e : nullptr);
     }
   }
   for (; i < w.total; i += w.step) {
     float a[V];
     load<V>(x + i * V, a);
-    requant_vector<V>(a, sc, q, y + i * V,
+    requant_vector<V, RELU>(a, sc, q, y + i * V,
                       codes != nullptr ? codes + i * V : nullptr);
   }
 }
 
-template <int V>
+template <int V, bool RELU>
 cudaError_t launch(const float* x, float* y, int8_t* codes, int* smax,
                    unsigned int* ticket, long long rows, int C, int blocks,
                    const Quant& q, cudaStream_t s) {
-  requant_max<V><<<blocks, NT, C * sizeof(int), s>>>(x, smax, rows, C);
+  requant_max<V, RELU><<<blocks, NT, C * sizeof(int), s>>>(x, smax, rows, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  requant_quantize<V><<<blocks, NT, 0, s>>>(x, smax, ticket, y, codes, rows,
-                                            C, q);
+  requant_quantize<V, RELU><<<blocks, NT, 0, s>>>(x, smax, ticket, y, codes,
+                                                  rows, C, q);
   return cudaGetLastError();
 }
 
@@ -253,11 +268,12 @@ cudaError_t launch(const float* x, float* y, int8_t* codes, int* smax,
 // x, y: float32 [rows, C], contiguous; codes: int8 [rows, C] or null;
 // work: int32 [1 + C] (the ticket, then C maxima), zero on entry and left
 // zero.  vec: 4 (C % 4 == 0, x and y 16-byte aligned) or 1.  blocks: the
-// grid of both passes, at least ceil(C / vec / 256).  C <= MAX_C.  Returns the
-// cudaError of the launches.
+// grid of both passes, at least ceil(C / vec / 256).  C <= MAX_C.  relu: 1
+// quantizes max(x, 0), 0 the signed x.  Returns the cudaError of the
+// launches.
 extern "C" int log_requant_launch(const void* x, void* y, void* codes,
                                   void* work, long long rows, int C, int bits,
-                                  int frac_bits, int vec, int blocks,
+                                  int frac_bits, int vec, int blocks, int relu,
                                   void* stream) {
   if (rows < 1 || C < 1 || C > MAX_C || bits < 1 || bits > 7 ||
       frac_bits < 0 || frac_bits > 4 || (vec != 1 && vec != 4) ||
@@ -272,8 +288,7 @@ extern "C" int log_requant_launch(const void* x, void* y, void* codes,
   float* yf = static_cast<float*>(y);
   int8_t* cp = static_cast<int8_t*>(codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec == 4 ? launch<4>(xf, yf, cp, smax, ticket, rows, C, blocks, q, s)
-               : launch<1>(xf, yf, cp, smax, ticket, rows, C, blocks, q, s);
-  return static_cast<int>(err);
+  const auto go = vec == 4 ? (relu ? &launch<4, true> : &launch<4, false>)
+                           : (relu ? &launch<1, true> : &launch<1, false>);
+  return static_cast<int>(go(xf, yf, cp, smax, ticket, rows, C, blocks, q, s));
 }

@@ -1,17 +1,19 @@
-"""Post-ReLU log requantization of an activation map: `relu_q`'s work.
+"""Log requantization of an activation map: `relu_q`'s work, and with
+``relu=False`` that of `log_q` on a signed map.
 
 ``log_requant_cuda`` is the wrapper of the hand-written CUDA kernel
 `csrc/log_requant.cu`, two launches a call: a per-channel max of the
-ReLU'd map, then one pass that quantizes each element against its
-channel's scale and writes the dequantized value (and, if asked, the
-packed int8 codes).  It computes `ref_log_requant` (ReLU, then
-`log_quantize` and `log_dequantize`) operation for operation, so on the
-card the two agree bit for bit.  Its grid comes from the plain
-`log_requant_geometry`, which the CPU tests reach.  For a CPU tensor the
-wrapper runs `ref_log_requant`; for a CUDA tensor it launches the kernel
-or raises.  `kernel_takes` says which inputs the kernel computes;
-`models.cnn.relu_q` takes the kernel for those and the plain ops (with
-their straight-through backward) for every other.
+ReLU'd map (of |x| when signed), then one pass that quantizes each element
+against its channel's scale and writes the dequantized value, with x's
+sign when signed (and, if asked, the packed int8 codes).  It computes
+`ref_log_requant` (ReLU unless signed, then `log_quantize` and
+`log_dequantize`) operation for operation, so on the card the two agree
+bit for bit.  Its grid comes from the plain `log_requant_geometry`, which
+the CPU tests reach.  For a CPU tensor the wrapper runs `ref_log_requant`;
+for a CUDA tensor it launches the kernel or raises.  `kernel_takes` says
+which inputs the kernel computes; `models.cnn.relu_q` and `log_q` take the
+kernel for those and the plain ops (with their straight-through backward)
+for every other.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def log_requant_geometry(rows: int, C: int, aligned: bool,
 
 
 def kernel_takes(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT) -> bool:
-    """Whether `log_requant_cuda` computes ``relu_q(x)`` for this input: a
+    """Whether `log_requant_cuda` computes ``relu_q(x)`` and ``log_q(x)``
+    for this input (the ReLU and the signed kernels take the same ones): a
     contiguous non-empty float32 map on the card with 1 to
     ``MAX_CHANNELS`` channels last, a per-channel config the kernel
     decodes, and no gradient wanted through it."""
@@ -59,10 +62,11 @@ def kernel_takes(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT) -> bool:
 
 
 def ref_log_requant(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT,
-                    codes: bool = False):
-    """The plain version: ReLU, then quantize and dequantize with a scale a
-    channel → the map (and its packed int8 codes with ``codes``)."""
-    packed, scale = log_quantize(torch.relu(x), cfg)
+                    codes: bool = False, relu: bool = True):
+    """The plain version: ReLU (unless ``relu`` is false), then quantize and
+    dequantize with a scale a channel → the map (and its packed int8 codes
+    with ``codes``)."""
+    packed, scale = log_quantize(torch.relu(x) if relu else x, cfg)
     y = log_dequantize(packed, scale, cfg, dtype=x.dtype)
     return (y, packed) if codes else y
 
@@ -85,16 +89,17 @@ def _kernel_fn():
     fn = _build.load("log_requant").log_requant_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def log_requant_cuda(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT,
-                     codes: bool = False):
-    """``relu(x)`` log-requantized with one scale a channel (the last
-    axis) → a new float32 map of x's shape (and the packed int8 codes of
-    the same shape with ``codes``).
+                     codes: bool = False, relu: bool = True):
+    """``relu(x)`` (``x`` itself, signed, with ``relu=False``)
+    log-requantized with one scale a channel (the last axis) → a new
+    float32 map of x's shape (and the packed int8 codes of the same shape
+    with ``codes``).
 
     x: contiguous float32, at least 2-d, 1 to ``MAX_CHANNELS`` channels.
     A CUDA tensor launches the two kernels (adding two to
@@ -111,7 +116,7 @@ def log_requant_cuda(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT,
         raise ValueError(f"the kernel quantizes per channel with bits ≤ 7 "
                          f"and frac_bits ≤ 4, got {cfg}")
     if x.device.type == "cpu":
-        return ref_log_requant(x, cfg, codes)
+        return ref_log_requant(x, cfg, codes, relu)
     if x.device.type != "cuda":
         raise ValueError(f"log_requant_cuda runs on CUDA or CPU tensors, got "
                          f"{x.device}")
@@ -127,7 +132,7 @@ def log_requant_cuda(x: torch.Tensor, cfg: LogQuantConfig = DEFAULT,
         x.data_ptr(), y.data_ptr(),
         packed.data_ptr() if packed is not None else None, work.data_ptr(),
         rows, C, cfg.bits, cfg.frac_bits, geo["vec"], geo["blocks"],
-        torch.cuda.current_stream(x.device).cuda_stream)
+        int(relu), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         work.zero_()   # a refused second launch leaves maxima behind
         raise RuntimeError(f"log_requant CUDA launch failed: cudaError {err}")

@@ -1,15 +1,19 @@
 """The networks the paper benchmarks (VGG-16, MobileNet v1, ResNet-34,
-SqueezeNet) in PyTorch, with optional base-√2 log fake-quant on conv
-weights and post-ReLU activations (paper §3).
+SqueezeNet; `CNN_ZOO`) and ConvNeXt-T in PyTorch, with optional base-√2
+log fake-quant on conv weights and activations (paper §3).
 
-Counterpart of `repro.models.cnn`: the same layer plans, NHWC activations,
-HWIO conv kernels and parameter trees (plain dicts and lists of tensors;
-ResNet's blocks are ``(block, stride)`` tuples).  Two knobs:
+The zoo is the counterpart of `repro.models.cnn`: the same layer plans,
+NHWC activations, HWIO conv kernels and parameter trees (plain dicts and
+lists of tensors; ResNet's blocks are ``(block, stride)`` tuples).
+ConvNeXt-T (Liu et al., arXiv:2201.03545) has no counterpart there; it
+follows the same conventions, and its activations are signed (`log_q`).
+Two knobs:
 
   * ``quant="logq6"`` inserts `fake_log_quant` (straight-through) on conv
-    weights and post-ReLU activations, the QAT path; where no gradient is
-    wanted, a float32 activation on the card is requantized by the CUDA
-    kernel `kernels/log_requant` instead, bit for bit the same values;
+    weights and on activations (post-ReLU in `relu_q`, signed in `log_q`),
+    the QAT path; where no gradient is wanted, a float32 activation on the
+    card is requantized by the CUDA kernel `kernels/log_requant` instead,
+    bit for bit the same values;
   * ``conv_impl="cuda"|"cuda_im2col"|"blockwise"|"ref"|"auto"`` routes
     every conv through `kernels/ops.conv2d` on packed int8 log codes
     (packed once at load by `serving.quantize.quantize_cnn_params`, or per
@@ -20,11 +24,13 @@ ResNet's blocks are ``(block, stride)`` tuples).  Two knobs:
 `make_cnn` builds on the card unless the caller passes ``device="cpu"``.
 
 Each forward is marked with `obs.trace` spans, one name a layer kind and
-the same in all four nets: ``cnn.forward`` (args ``net``, ``batch``)
-around the whole forward, and inside it ``cnn.conv``, ``cnn.requant``,
-``cnn.pool``, ``cnn.shortcut``, ``cnn.concat`` and ``cnn.head``, which
-do not nest; every op of the forward runs inside exactly one of them.
-Under `torch.profiler` they land in its trace beside the device kernels.
+the same in every net: ``cnn.forward`` (args ``net``, ``batch``) around
+the whole forward, and inside it ``cnn.conv`` (a dense conv and its bias),
+``cnn.dwconv`` (a depthwise conv and its bias), ``cnn.requant``,
+``cnn.norm`` (LayerNorm), ``cnn.act`` (GELU), ``cnn.pool``,
+``cnn.shortcut``, ``cnn.concat`` and ``cnn.head``, which do not nest;
+every op of the forward runs inside exactly one of them.  Under
+`torch.profiler` they land in its trace beside the device kernels.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ def conv2d(p, x, *, stride=1, pad="SAME", quant=None, qcfg=LOGQ_DEFAULT,
 
     With ``conv_impl`` set (or a packed weight) the conv dispatches to
     `kernels.ops.conv2d` on int8 log codes; otherwise it is the fake-quant
-    float conv of the QAT path."""
+    float conv of the QAT path.  A depthwise conv (one input channel a
+    group) runs in the ``cnn.dwconv`` span, any other in ``cnn.conv``."""
     w = p["w"]
     if _CONV_SHAPE_TRACE is not None:
         hwio = tuple(w.shape)  # QuantizedTensor.shape is the logical HWIO
@@ -70,7 +77,8 @@ def conv2d(p, x, *, stride=1, pad="SAME", quant=None, qcfg=LOGQ_DEFAULT,
             B=int(x.shape[0]), H=int(x.shape[1]), W=int(x.shape[2]),
             C=int(x.shape[3]), K=int(hwio[0]), Cout=int(hwio[-1]),
             stride=int(stride), padding=pad, groups=int(groups)))
-    with trace.span("cnn.conv"):
+    depthwise = groups > 1 and groups == x.shape[-1]
+    with trace.span("cnn.dwconv" if depthwise else "cnn.conv"):
         if conv_impl is not None or isinstance(w, QuantizedTensor):
             qt = (w if isinstance(w, QuantizedTensor)
                   else quantize_tensor(w, qcfg))
@@ -117,11 +125,41 @@ def relu_q(x, quant=None, qcfg=LOGQ_DEFAULT):
     with trace.span("cnn.requant"):
         if quant != "logq6":
             return torch.relu(x)
-        path = "cuda" if log_requant.kernel_takes(x, qcfg) else "plain"
-        REGISTRY.counter("requant_calls", path=path).inc()
-        if path == "cuda":
-            return log_requant.log_requant_cuda(x, qcfg)
-        return fake_log_quant(torch.relu(x), qcfg)
+        return _requant(x, qcfg, relu=True)
+
+
+def log_q(x, quant=None, qcfg=LOGQ_DEFAULT):
+    """The signed counterpart of `relu_q`: (optionally) log-requantize x
+    itself, each value keeping its sign (the 6-bit + sign codes), for the
+    maps of a net whose activations are signed.  The kernel where it takes
+    the input, else the plain ops; ``requant_signed_calls{path=cuda|plain}``
+    counts each."""
+    with trace.span("cnn.requant"):
+        if quant != "logq6":
+            return x
+        return _requant(x, qcfg, relu=False)
+
+
+def _requant(x, qcfg, *, relu):
+    path = "cuda" if log_requant.kernel_takes(x, qcfg) else "plain"
+    REGISTRY.counter("requant_calls" if relu else "requant_signed_calls",
+                     path=path).inc()
+    if path == "cuda":
+        return log_requant.log_requant_cuda(x, qcfg, relu=relu)
+    return fake_log_quant(torch.relu(x) if relu else x, qcfg)
+
+
+def layer_norm(p, x, eps=1e-6):
+    """LayerNorm over the last (channel) axis with scale ``p['g']`` and
+    shift ``p['b']``."""
+    with trace.span("cnn.norm"):
+        return F.layer_norm(x, x.shape[-1:], p["g"], p["b"], eps)
+
+
+def gelu(x):
+    """The exact (erf) GELU."""
+    with trace.span("cnn.act"):
+        return F.gelu(x)
 
 
 def avgpool_global(x):
@@ -311,17 +349,84 @@ def squeezenet_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
 
 
 # ---------------------------------------------------------------------------
+# ConvNeXt-T (Liu et al., "A ConvNet for the 2020s", arXiv:2201.03545)
+# ---------------------------------------------------------------------------
+
+_CONVNEXT_T = [(96, 3), (192, 3), (384, 9), (768, 3)]  # (width, blocks)
+LAYER_SCALE_INIT = 1e-6   # the published init of each block's gamma
+
+
+def _norm_init(c, device):
+    return {"g": torch.ones((c,), device=device),
+            "b": torch.zeros((c,), device=device)}
+
+
+def convnext_t_init(gen, *, n_classes=1000, cin=3, width_mult=1.0,
+                    device="cpu"):
+    """A 4x4/4 stem conv and its LayerNorm; per stage (after the first) a
+    LayerNorm and a 2x2/2 conv down; blocks of a 7x7 depthwise conv, a
+    LayerNorm, a 1x1 conv to four times the width, GELU, a 1x1 conv back
+    and a per-channel layer scale ``gamma``; a LayerNorm and the dense
+    head.  LayerNorms start at g = 1, b = 0, ``gamma`` at the published
+    1e-6."""
+    dims = [max(8, int(c * width_mult)) for c, _ in _CONVNEXT_T]
+    params = {"stem": conv_init(gen, 4, cin, dims[0], device=device),
+              "stem_norm": _norm_init(dims[0], device), "stages": []}
+    c = dims[0]
+    for s, (d, (_, blocks)) in enumerate(zip(dims, _CONVNEXT_T)):
+        stage = {}
+        if s > 0:
+            stage["down_norm"] = _norm_init(c, device)
+            stage["down"] = conv_init(gen, 2, c, d, device=device)
+        stage["blocks"] = [{
+            "dw": conv_init(gen, 7, d, d, groups=d, device=device),
+            "norm": _norm_init(d, device),
+            "pw1": conv_init(gen, 1, d, 4 * d, device=device),
+            "pw2": conv_init(gen, 1, 4 * d, d, device=device),
+            "gamma": torch.full((d,), LAYER_SCALE_INIT, device=device)}
+            for _ in range(blocks)]
+        params["stages"].append(stage)
+        c = d
+    params["head_norm"] = _norm_init(c, device)
+    params["head"] = _head_init(gen, c, n_classes, device)
+    return params
+
+
+@_forward_span("convnext_t")
+def convnext_t_apply(params, x, *, quant=None, qcfg=LOGQ_DEFAULT,
+                     conv_impl=None):
+    cv = functools.partial(conv2d, quant=quant, qcfg=qcfg,
+                           conv_impl=conv_impl)
+    q = functools.partial(log_q, quant=quant, qcfg=qcfg)
+    x = q(layer_norm(params["stem_norm"], cv(params["stem"], x, stride=4)))
+    for s, stage in enumerate(params["stages"]):
+        if s > 0:
+            x = q(layer_norm(stage["down_norm"], x))
+            x = q(cv(stage["down"], x, stride=2))
+        for blk in stage["blocks"]:
+            h = cv(blk["dw"], x, groups=x.shape[-1])
+            h = q(layer_norm(blk["norm"], h))
+            h = q(gelu(cv(blk["pw1"], h)))
+            h = cv(blk["pw2"], h)
+            with trace.span("cnn.shortcut"):   # layer scale and residual
+                x = x + blk["gamma"] * h
+            x = q(x)
+    x = layer_norm(params["head_norm"], avgpool_global(x))
+    return _head(params["head"], x)
+
+
+# ---------------------------------------------------------------------------
 # registry, construction, loss
 # ---------------------------------------------------------------------------
 
-CNNS = {
+CNN_ZOO = {  # the paper's four networks, which the JAX package mirrors
     "vgg16": (vgg16_init, vgg16_apply),
     "mobilenet_v1": (mobilenet_v1_init, mobilenet_v1_apply),
     "resnet34": (resnet34_init, resnet34_apply),
     "squeezenet": (squeezenet_init, squeezenet_apply),
 }
 
-CNN_ZOO = CNNS  # the paper's four networks
+CNNS = {**CNN_ZOO, "convnext_t": (convnext_t_init, convnext_t_apply)}
 
 
 def make_cnn(name: str, seed: int = 0, *, n_classes=1000, cin=3,
@@ -389,8 +494,9 @@ def _capture_conv_shapes(records: list):
 
 def trace_conv_shapes(name: str, *, batch=1, img=224, n_classes=1000, cin=3,
                       width_mult=1.0) -> list[dict]:
-    """Every conv dispatch of one zoo network, as launch-geometry records
-    ``{B, H, W, C, K, Cout, stride, padding, groups}`` in call order.
+    """Every conv dispatch of one network of `CNNS`, as launch-geometry
+    records ``{B, H, W, C, K, Cout, stride, padding, groups}`` in call
+    order.
 
     Runs on ``torch.device("meta")`` (the role `jax.eval_shape` plays in the
     JAX package): no parameter or activation is ever materialised."""
@@ -404,10 +510,10 @@ def trace_conv_shapes(name: str, *, batch=1, img=224, n_classes=1000, cin=3,
 
 def zoo_conv_shapes(*, batch=1, img=224, n_classes=1000, cin=3,
                     width_mult=1.0) -> list[dict]:
-    """Deduped union of conv launch shapes across the zoo (each record gains
-    a ``nets`` list naming the networks that dispatch it)."""
+    """Deduped union of conv launch shapes across the zoo (`CNN_ZOO`; each
+    record gains a ``nets`` list naming the networks that dispatch it)."""
     seen: dict[tuple, dict] = {}
-    for name in CNNS:
+    for name in CNN_ZOO:
         for r in trace_conv_shapes(name, batch=batch, img=img,
                                    n_classes=n_classes, cin=cin,
                                    width_mult=width_mult):

@@ -1,7 +1,7 @@
 """Build (or check) the packaged autotune table of the CUDA kernels.
 
 The twin of the JAX package's `tools/build_autotune_table.py`.  It walks
-the model zoo (`models/cnn.py` `CNNS` at `configs/neuromax_cnn.py`'s
+the model zoo (`models/cnn.py` `CNN_ZOO` at `configs/neuromax_cnn.py`'s
 quantization) by shape tracing on the meta device (`zoo_conv_shapes`: no
 parameter materialised) at batch 1 and batch 8, adds the attention shapes
 (the five `ATTENTION_SHAPES` of the JAX package's

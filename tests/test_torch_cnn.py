@@ -44,7 +44,7 @@ def _images(seed, b, img):
 
 
 @pytest.mark.parametrize("quant", ["logq6", None])
-@pytest.mark.parametrize("name", sorted(tcnn.CNNS))
+@pytest.mark.parametrize("name", sorted(tcnn.CNN_ZOO))
 def test_logits_match_jax_blockwise(name, quant):
     """All four nets, on bridged weights, against JAX ``conv_impl=
     "blockwise"``: the port's blockwise, its kernel route (plain on the
@@ -58,7 +58,7 @@ def test_logits_match_jax_blockwise(name, quant):
     lj = _jit_logits(apply_j, params, x)
     tparams = _bridge(params)
     packed = quantize_cnn_params(tparams, conv_layout="lane_packed")
-    apply_t = functools.partial(tcnn.CNNS[name][1], quant=quant)
+    apply_t = functools.partial(tcnn.CNN_ZOO[name][1], quant=quant)
     xt = torch.from_numpy(x)
     tol = 1e-3 * (np.abs(lj).max() + 1)
     with torch.no_grad():
@@ -81,7 +81,7 @@ def test_float_conv_path_matches_jax(name, quant):
     x = _images(3, 2, RED.img)
     lj = _jit_logits(apply_j, params, x)
     with torch.no_grad():
-        lt = tcnn.CNNS[name][1](_bridge(params), torch.from_numpy(x),
+        lt = tcnn.CNN_ZOO[name][1](_bridge(params), torch.from_numpy(x),
                                 quant=quant)
     np.testing.assert_allclose(lt.numpy(), lj,
                                atol=1e-3 * (np.abs(lj).max() + 1))
@@ -109,7 +109,7 @@ def jax_traces():
     return {name: jcnn.trace_conv_shapes(name) for name in jcnn.CNNS}
 
 
-@pytest.mark.parametrize("name", sorted(tcnn.CNNS))
+@pytest.mark.parametrize("name", sorted(tcnn.CNN_ZOO))
 def test_trace_conv_shapes_match_jax(name, jax_traces):
     recs = tcnn.trace_conv_shapes(name)
     assert len(recs) == CONVS_PER_NET[name]

@@ -16,17 +16,21 @@ torch.set_num_threads(2)   # test workers share the cores (ROADMAP C)
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
 IMG = 32
-# the spans of one forward at 32 px: convs, ReLUs, pools (the maxpools the
-# plan keeps at this size and the global average), shortcuts, concats, head
+# the spans of one forward at 32 px: dense and depthwise convs,
+# requantizations, pools (the maxpools the plan keeps at this size and the
+# global average), shortcuts, concats, LayerNorms, GELUs, head
 PLAN = {
     "vgg16": {"cnn.conv": 13, "cnn.requant": 13, "cnn.pool": 6,
               "cnn.head": 1},
-    "mobilenet_v1": {"cnn.conv": 27, "cnn.requant": 27, "cnn.pool": 1,
-                     "cnn.head": 1},
+    "mobilenet_v1": {"cnn.conv": 14, "cnn.dwconv": 13, "cnn.requant": 27,
+                     "cnn.pool": 1, "cnn.head": 1},
     "resnet34": {"cnn.conv": 36, "cnn.requant": 33, "cnn.shortcut": 16,
                  "cnn.pool": 2, "cnn.head": 1},
     "squeezenet": {"cnn.conv": 26, "cnn.requant": 26, "cnn.concat": 8,
                    "cnn.pool": 4},
+    "convnext_t": {"cnn.conv": 40, "cnn.dwconv": 18, "cnn.requant": 61,
+                   "cnn.norm": 23, "cnn.act": 18, "cnn.shortcut": 18,
+                   "cnn.pool": 1, "cnn.head": 1},
 }
 
 

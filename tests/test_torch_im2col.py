@@ -124,7 +124,7 @@ def test_im2col_route_keeps_bf16_patches_and_out_dtype():
                        out_dtype=torch.bfloat16).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", sorted(tcnn.CNNS))
+@pytest.mark.parametrize("name", sorted(tcnn.CNN_ZOO))
 def test_nets_match_jax_pallas_im2col(name, monkeypatch):
     """The four nets at `CNNConfig().reduced()` size, logq6, on bridged
     weights packed as the chip run packs them (``lane_packed`` depthwise,
@@ -142,7 +142,7 @@ def test_nets_match_jax_pallas_im2col(name, monkeypatch):
     tparams = tcnn.params_from_numpy(jax.tree.map(np.asarray, params),
                                      device="cpu")
     packed = quantize_cnn_params(tparams, conv_layout="lane_packed")
-    apply_t = functools.partial(tcnn.CNNS[name][1], quant="logq6",
+    apply_t = functools.partial(tcnn.CNN_ZOO[name][1], quant="logq6",
                                 conv_impl="cuda_im2col")
     calls = []
     conv = tops.conv2d

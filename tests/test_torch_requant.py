@@ -1,5 +1,6 @@
-"""`relu_q`'s log requantization (`repro_torch.models.cnn.relu_q`) and its
-CUDA kernel (`repro_torch.kernels.log_requant`).
+"""`relu_q`'s log requantization (`repro_torch.models.cnn.relu_q`), its
+signed counterpart `log_q`, and their CUDA kernel
+(`repro_torch.kernels.log_requant`, ``relu=False`` for a signed map).
 
 On the CPU: which calls take the plain ops and how they are counted; the
 kernel's launch shape and walk over a map, in plain Python; and a plain
@@ -35,8 +36,12 @@ REQUANTS = {"vgg16": 13, "mobilenet_v1": 27, "resnet34": 33,
             "squeezenet": 26}
 
 
-def _calls(path: str) -> int:
-    return REGISTRY.counter("requant_calls", path=path).value
+def _calls(path: str, name: str = "requant_calls") -> int:
+    return REGISTRY.counter(name, path=path).value
+
+
+def _signed_calls(path: str) -> int:
+    return _calls(path, "requant_signed_calls")
 
 
 def _map(seed: int, C: int, shape=(2, 5, 7)) -> np.ndarray:
@@ -62,12 +67,14 @@ def _map(seed: int, C: int, shape=(2, 5, 7)) -> np.ndarray:
     return x.astype(np.float32).reshape(shape + (C,))
 
 
-def _emulate(x: torch.Tensor, cfg=CFG):
+def _emulate(x: torch.Tensor, cfg=CFG, relu=True):
     """The kernel's operations, in its order, in plain torch: the max of
-    max(x, 0) per channel as a signed max over the float bits from a zeroed
-    buffer, then one pass → (values, packed int8 codes)."""
+    max(x, 0) (of |x| with ``relu=False``) per channel as a signed max over
+    the float bits from a zeroed buffer, then one pass, which negates the
+    value of a negative x and sets its code's sign bit when signed →
+    (values, packed int8 codes)."""
     C = x.shape[-1]
-    v = torch.maximum(x, torch.zeros(()))
+    v = torch.maximum(x, torch.zeros(())) if relu else x.abs()
     bits = v.reshape(-1, C).view(torch.int32).amax(0).clamp_min(0)
     s = bits.view(torch.float32)
     scale = torch.where(s > 0, s, torch.ones(()))
@@ -78,6 +85,10 @@ def _emulate(x: torch.Tensor, cfg=CFG):
     y = torch.where(zero, torch.zeros(()),
                     torch.exp2(code * (1.0 / cfg.steps)) * scale)
     biased = torch.where(zero, 0, code.to(torch.int32) + cfg.bias)
+    if not relu:
+        neg = x < 0
+        y = torch.where(neg, -y, y)
+        biased = torch.where(neg, biased | (cfg.bias + 1), biased)
     return y, biased.to(torch.int8)
 
 
@@ -118,6 +129,34 @@ def test_relu_q_takes_the_plain_ops_and_counts_them(case):
         assert torch.equal(x.grad, torch.where(x > 0, g, torch.zeros(())))
 
 
+@pytest.mark.parametrize("case", sorted(PLAIN_CASES))
+def test_log_q_takes_the_plain_ops_and_counts_them_signed(case):
+    dtype, cfg, grad = PLAIN_CASES[case]
+    x = torch.from_numpy(_map(2, 8)).to(dtype).requires_grad_(grad)
+    assert not lr.kernel_takes(x, cfg)
+    before = [_calls(p) for p in ("plain", "cuda")]
+    plain, cuda = _signed_calls("plain"), _signed_calls("cuda")
+    y = tcnn.log_q(x, "logq6", cfg)
+    assert (_signed_calls("plain"), _signed_calls("cuda")) == (plain + 1,
+                                                              cuda)
+    assert [_calls(p) for p in ("plain", "cuda")] == before
+    want = tlq.fake_log_quant(x, cfg)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(y.detach().view(view), want.detach().view(view))
+    assert bool((y < 0).any())   # the signs are kept
+    if grad:   # straight through, everywhere
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+        (y * g).sum().backward()
+        assert torch.equal(x.grad, g)
+
+
+def test_log_q_without_quant_is_the_identity_and_not_counted():
+    x = torch.from_numpy(_map(5, 8))
+    before = (_signed_calls("plain"), _signed_calls("cuda"))
+    assert tcnn.log_q(x) is x
+    assert (_signed_calls("plain"), _signed_calls("cuda")) == before
+
+
 def test_relu_q_without_quant_is_a_relu_and_not_counted():
     x = torch.from_numpy(_map(3, 8))
     before = (_calls("plain"), _calls("cuda"))
@@ -136,6 +175,15 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_and_refuses_grad():
         lr.log_requant_cuda(x, tlq.LogQuantConfig(per_channel=False))
     with pytest.raises(ValueError, match="contiguous float32"):
         lr.log_requant_cuda(x.transpose(1, 2))
+
+
+def test_wrapper_runs_the_signed_plain_version_on_the_cpu():
+    x = torch.from_numpy(_map(6, 64))
+    y, codes = lr.log_requant_cuda(x, codes=True, relu=False)
+    assert torch.equal(_bits(y), _bits(tlq.fake_log_quant(x)))
+    assert torch.equal(codes, tlq.log_quantize(x)[0])
+    sign = (codes.to(torch.int32) >> CFG.bits) & 1
+    assert torch.equal(sign.bool(), x < 0) and bool((y < 0).any())
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +252,19 @@ def test_emulation_equals_the_plain_ops_bit_for_bit(C):
 
 
 @pytest.mark.parametrize("C", CHANNELS)
+def test_signed_emulation_equals_the_plain_ops_bit_for_bit(C):
+    x = torch.from_numpy(_map(50 + C, C))
+    y, codes = _emulate(x, relu=False)
+    assert torch.equal(_bits(y), _bits(tlq.fake_log_quant(x)))
+    assert torch.equal(codes, tlq.log_quantize(x)[0])
+    assert torch.equal(_bits(y), _bits(lr.ref_log_requant(x, relu=False)))
+    assert float(y[..., 0].abs().max()) == 0.0   # all-zero channel
+    assert bool((y[..., 1] < 0).all())           # negative-only channel
+    zero = x == 0                                # -0.0 comes out as +0.0
+    assert not torch.signbit(y[zero]).any() and not codes[zero].any()
+
+
+@pytest.mark.parametrize("C", CHANNELS)
 def test_emulation_matches_jax_fake_log_quant(C):
     """Values within `test_torch_logquant.py`'s 2e-6 of JAX's; a code may
     differ by one step only where 2·log2(v / scale) lies within 1e-5 of a
@@ -258,6 +319,38 @@ def _assert_kernel_equals_plain(x):
         assert torch.equal(codes, want_codes), tuple(x.shape)
     assert torch.equal(lr.log_requant_cuda(x), y)
     assert int(lr._workspace(x.device).abs().sum()) == 0
+
+
+def _assert_signed_kernel_equals_plain(x):
+    """The signed kernel against `fake_log_quant` of x itself on the card,
+    values and codes bit for bit, twice; the workspace left zero."""
+    want, want_codes = tlq.fake_log_quant(x), tlq.log_quantize(x)[0]
+    for _ in range(2):
+        y, codes = lr.log_requant_cuda(x, codes=True, relu=False)
+        assert torch.equal(_bits(y), _bits(want)), tuple(x.shape)
+        assert torch.equal(codes, want_codes), tuple(x.shape)
+    assert int(lr._workspace(x.device).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_signed_kernel_matches_plain_ops_on_card(cuda_device):
+    """As below, signed: both loads, the special channels (the negative-only
+    one now keeps its values), 2-d maps and the widest C; and the ReLU
+    kernel called after the signed one on the same map still equals its
+    plain ops."""
+    dev = cuda_device
+    for C in CHANNELS + (1, 1000, 1024):
+        _assert_signed_kernel_equals_plain(
+            torch.from_numpy(_map(60 + C, C)).to(dev))
+    x = torch.from_numpy(_map(70, 64)).to(dev)
+    off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    _assert_signed_kernel_equals_plain(off)
+    _assert_signed_kernel_equals_plain(
+        torch.randn((3, lr.MAX_CHANNELS), device=dev))
+    _assert_signed_kernel_equals_plain(torch.randn((5000, 24), device=dev) ** 3)
+    _assert_kernel_equals_plain(x)
 
 
 @pytest.mark.cuda
